@@ -1,0 +1,73 @@
+"""Standard and pathwise gradient-estimator probes (paper §2.1, §3).
+
+Port of ``repro.core.estimators``. The right-hand sides of
+``H [v_y, v_1..v_s] = [y, b_1..b_s]`` are ``b_j = z_j`` (standard) or
+``b_j = f(x) + sigma * w_eps`` with ``f`` an RFF prior sample (pathwise).
+Under warm starting the base draws are fixed once; only their
+reparameterisation in theta changes. A :class:`ProbeState` built directly
+from given draws is how the reference's draws are injected.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.gp.rff import RFFState, init_rff, prior_sample_at
+
+STANDARD = "standard"
+PATHWISE = "pathwise"
+
+
+class ProbeState(NamedTuple):
+    """Fixed base randomness for either estimator.
+
+    standard: ``z`` (n, s) probes. pathwise: ``rff`` prior-sample draws and
+    ``w_eps`` (n, s) base noise.
+    """
+
+    estimator: str
+    z: Optional[torch.Tensor]
+    rff: Optional[RFFState]
+    w_eps: Optional[torch.Tensor]
+
+
+def init_probes(
+    generator: Optional[torch.Generator],
+    estimator: str,
+    n: int,
+    d: int,
+    num_probes: int,
+    num_rff_pairs: int = 1000,
+    kind: str = "matern32",
+    dtype=torch.float32,
+    device="cpu",
+) -> ProbeState:
+    """Draw the probe randomness for one fit from ``generator``."""
+    if estimator == STANDARD:
+        z = torch.randn((n, num_probes), generator=generator, dtype=dtype,
+                        device=device)
+        return ProbeState(estimator=STANDARD, z=z, rff=None, w_eps=None)
+    if estimator == PATHWISE:
+        rff = init_rff(generator, num_rff_pairs, d, num_probes, kind=kind,
+                       dtype=dtype, device=device)
+        w_eps = torch.randn((n, num_probes), generator=generator, dtype=dtype,
+                            device=device)
+        return ProbeState(estimator=PATHWISE, z=None, rff=rff, w_eps=w_eps)
+    raise ValueError(f"unknown estimator {estimator!r}")
+
+
+def probe_targets(probes: ProbeState, x: torch.Tensor,
+                  params: HyperParams) -> torch.Tensor:
+    """Right-hand sides b_1..b_s (n, s) for the current hyperparameters."""
+    if probes.estimator == STANDARD:
+        return probes.z
+    return prior_sample_at(x, probes.rff, params) + params.noise * probes.w_eps
+
+
+def build_system_targets(probes: ProbeState, x: torch.Tensor,
+                         y: torch.Tensor,
+                         params: HyperParams) -> torch.Tensor:
+    """Full batched RHS [y | b_1..b_s] of shape (n, 1+s)."""
+    return torch.cat([y[:, None], probe_targets(probes, x, params)], dim=1)

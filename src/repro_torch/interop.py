@@ -1,0 +1,85 @@
+"""State carried across from the JAX reference as nested dicts of numpy arrays.
+
+The caller flattens the reference's pytrees to numpy on its side (this
+module never sees JAX). Layouts:
+
+``outer_state_from_numpy``::
+
+    {"params": {"raw_lengthscales", "raw_signal", "raw_noise", "kernel"},
+     "adam": {"step", "mu": <params-like>, "nu": <params-like>},
+     "probes": {"estimator", "z", "rff": {"z", "u", "w", "kind"} | None,
+                "w_eps"},
+     "carry_v", "step"}
+
+``servable_from_numpy``::
+
+    {"x", "correction", "rff": {...}, "params": {...}, "kind"}
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.estimators import ProbeState
+from repro_torch.core.outer import OuterState
+from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.gp.rff import RFFState
+from repro_torch.serve.artifact import ServableGP
+from repro_torch.train.adam import AdamState
+
+
+def _t(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _params(tree: dict, device, kernel: Optional[str] = None) -> HyperParams:
+    return HyperParams(
+        raw_lengthscales=_t(tree["raw_lengthscales"], device),
+        raw_signal=_t(tree["raw_signal"], device),
+        raw_noise=_t(tree["raw_noise"], device),
+        kernel=kernel if kernel is not None else tree["kernel"],
+    )
+
+
+def _rff(tree: Optional[dict], device) -> Optional[RFFState]:
+    if tree is None:
+        return None
+    return RFFState(z=_t(tree["z"], device), u=_t(tree["u"], device),
+                    w=_t(tree["w"], device), kind=tree["kind"])
+
+
+def outer_state_from_numpy(tree: dict, device="cpu") -> OuterState:
+    """The reference's ``OuterState`` (as numpy dicts) as the port's."""
+    params = _params(tree["params"], device)
+    adam = tree["adam"]
+    probes = tree["probes"]
+    return OuterState(
+        params=params,
+        adam=AdamState(
+            step=int(adam["step"]),
+            mu=_params(adam["mu"], device, kernel=params.kernel),
+            nu=_params(adam["nu"], device, kernel=params.kernel),
+        ),
+        probes=ProbeState(
+            estimator=probes["estimator"], z=_t(probes.get("z"), device),
+            rff=_rff(probes.get("rff"), device),
+            w_eps=_t(probes.get("w_eps"), device),
+        ),
+        carry_v=_t(tree["carry_v"], device),
+        step=int(tree["step"]),
+    )
+
+
+def servable_from_numpy(tree: dict, device="cpu") -> ServableGP:
+    """The reference's ``ServableGP`` (as numpy dicts) as the port's."""
+    return ServableGP(
+        x=_t(tree["x"], device),
+        correction=_t(tree["correction"], device),
+        rff=_rff(tree["rff"], device),
+        params=_params(tree["params"], device),
+        kind=tree["kind"],
+    )

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,30 @@ Phases, each printing JSON lines:
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    every CUDA kernel of the port from ``src/repro_torch/csrc``.
 2. kernels: every kernel against its plain PyTorch version, for all four
-   registered profiles, at the serve path's shapes (CG: 12150 x 12150,
-   d=26, s=65; prediction: 64 x 12150) and one ragged shape, with times
-   (CUDA events), the plain version's time, one PyTorch library yardstick,
-   and the least time the card could take (``bound_ms``).
+   registered profiles, with times (CUDA events), the plain version's time,
+   one PyTorch library yardstick, and the least time the card could take
+   (``bound_ms``). Forward: at the serve path's shapes (CG: 12150 x 12150,
+   d=26, s=65; prediction: 64 x 12150) and one ragged shape. Backward: at
+   the CG shape with g != v (the standard estimator's roles) and with
+   u = w, g = v (pathwise), and at the ragged shape. Then the gradient of
+   ``mll_grad_estimate`` through the kernel pair against autograd through
+   the plain tiled MVM at n = 2000, for both estimators.
 3. serve: the port's serve entry point (``repro_torch.launch.serve``) at the
    paper's full pol size, gp-iterative widths (64 probes, 1000 RFF pairs,
    Matérn-3/2), CG to 0.01 within 100 epochs, 10 outer steps, then 20
-   requests of 64 rows through the bucketed engine; the launch counts must
-   equal the CG MVMs plus the engine's dispatches.
-4. profile: one more outer step split into CG solve and gradient time, and
-   one step plus 5 requests under ``torch.profiler`` (device busy share,
-   top kernels).
+   requests of 64 rows through the bucketed engine. Forward launches must
+   equal the CG MVMs + 1 per outer step (the gradient) + the engine's
+   dispatches; backward launches 2 per outer step.
+4. train: the port's train entry point (``repro_torch.launch.train``) at the
+   full pol size (CG to 0.01, rank-100 pivoted-Cholesky preconditioner):
+   (a) pathwise, warm start, 20 steps, eval and checkpoint every 10;
+   (b) the CLI's defaults (standard estimator, cold start), 3 steps, eval at
+   step 3. Launch counts are held to the solver's MVMs, 1 + 2 per outer step
+   and the evaluations; then 3 steps on a small input on the card against
+   the same steps on the CPU from the same state.
+5. profile: one more outer step of run (a) split into preconditioner build,
+   CG solve and gradient, and one outer step under ``torch.profiler``
+   (device busy share, top kernels).
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -49,7 +62,18 @@ PEAK_HBM_BYTES = 3.35e12
 TOL_VS_PLAIN = 1e-5
 TOL_M12_VS_F64 = 1e-4
 TOL_SERVE_VS_CPU = 1e-4
+# Backward kernel vs its plain version, relative to the largest output:
+# each entry sums m * (s + d) fp32 products with cancellation, in another
+# order than the plain version's tiles.
+TOL_BWD_VS_PLAIN = 2e-5
+# Gradient through the kernel pair vs autograd through the plain tiled MVM,
+# per leaf, relative to the largest entry (the parity tests' bound).
+TOL_GRAD = 1e-4
+# Three outer steps on the card vs the CPU from one state: hyperparameters
+# relative to the largest (the parity tests' bound for trajectories).
+TOL_TRAIN_VS_CPU = 1e-4
 
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 CG_SHAPE = (12150, 12150, 26, 65)
 PREDICT_SHAPE = (64, 12150, 26, 65)
 RAGGED_SHAPE = (1001, 777, 7, 9)
@@ -96,6 +120,19 @@ def bound(n: int, m: int, d: int, s: int) -> dict:
     the output written once at the HBM rate."""
     ops = 2 * n * m * (d + s) + n * m
     nbytes = 4 * (n * d + m * d + m * s + n * s)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bound_bwd(n: int, m: int, d: int, s: int) -> dict:
+    """Least time for one backward call: 2nmd (r2) + 2nms (g v^T) + 2nmd
+    (contraction with the differences) + 3nm (slope, product, row sum)
+    operations at the fp32 CUDA-core peak, vs u, w, g, v read once and du
+    written once at the HBM rate."""
+    ops = 2 * n * m * d + 2 * n * m * s + 2 * n * m * d + 3 * n * m
+    nbytes = 4 * (n * d + m * d + n * s + m * s + n * d)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
@@ -156,8 +193,100 @@ def phase_kernels(torch, tiled, registry) -> dict:
     return main_entry
 
 
+def phase_kernels_bwd(torch, tiled, registry) -> dict:
+    """Backward kernel vs plain for every kind: at the CG shape in the
+    standard estimator's roles (w = u, g != v) and the pathwise ones
+    (w = u, g = v), and at the ragged shape; times at the CG shape."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    n, m, d, s = CG_SHAPE
+    u, g, v = rnd(n, d), rnd(n, s), rnd(m, s)
+    rn, rm, rd, rs = RAGGED_SHAPE
+    ragged = (rnd(rn, rd), rnd(rm, rd), rnd(rn, rs), rnd(rm, rs))
+    cases = (("cg_standard", (u, u, g, v)), ("cg_pathwise", (u, u, g, g)),
+             ("ragged", ragged))
+    results, main_entry = [], None
+    for label, (a, b, c, e) in cases:
+        for kind in KINDS:
+            out = tiled.kernel_mvm_bwd_cuda(a, b, c, e, kind)
+            torch.cuda.synchronize()
+            if kind == "matern12":
+                ref = tiled.kernel_mvm_bwd_plain(a.double(), b.double(),
+                                                 c.double(), e.double(), kind)
+                tol = TOL_M12_VS_F64
+            else:
+                ref = tiled.kernel_mvm_bwd_plain(a, b, c, e, kind)
+                tol = TOL_BWD_VS_PLAIN
+            err = (out.double() - ref.double()).abs().max().item()
+            scale = ref.abs().max().item()
+            rec = {"phase": "kernels_bwd", "shape": label,
+                   "n": a.shape[0], "m": b.shape[0], "d": a.shape[1],
+                   "s": c.shape[1], "kind": kind,
+                   "reference": "plain_f64" if kind == "matern12" else "plain_f32",
+                   "max_abs_err": err, "max_abs_out": scale,
+                   "rel_err": err / scale, "tol_rel": tol,
+                   "ok": bool(math.isfinite(err) and err <= tol * scale)}
+            if label == "cg_standard":
+                dkappa = registry.get_kernel(kind).dkappa_dr2
+
+                def library(a=a, b=b, c=c, e=e, dkappa=dkappa):
+                    dt = (c @ e.T) * dkappa(torch.cdist(a, b) ** 2)
+                    return 2.0 * (dt.sum(1, keepdim=True) * a - dt @ b)
+
+                rec["ms"] = time_ms(
+                    lambda: tiled.kernel_mvm_bwd_cuda(a, b, c, e, kind), 10)
+                rec["plain_ms"] = time_ms(
+                    lambda: tiled.kernel_mvm_bwd_plain(a, b, c, e, kind), 2)
+                rec["library_ms"] = time_ms(library, 3)
+                rec.update(bound_bwd(n, m, d, s))
+            emit(rec)
+            results.append(rec)
+            if label == "cg_standard" and kind == "matern32":
+                main_entry = rec
+    main_entry["worst_rel_err"] = max(r["rel_err"] for r in results)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} backward kernel checks failed: {bad}")
+    return main_entry
+
+
+def phase_grad(torch) -> None:
+    """``mll_grad_estimate`` through the kernel pair (backend cuda) vs
+    autograd through the plain tiled MVM (backend streamed), per leaf, on
+    pol rows at n = 2000, for both estimators."""
+    from repro_torch.core.gradients import mll_grad_estimate
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.gp.hyperparams import HyperParams
+
+    ds = load_dataset("pol", max_n=2223, device="cuda")
+    x, y = ds.x_train[:2000], ds.y_train[:2000]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    v = torch.randn((2000, 9), generator=gen, device="cuda")
+    targets = torch.randn((2000, 9), generator=gen, device="cuda")
+    params = HyperParams.create(x.shape[1], lengthscale=2.0, device="cuda")
+    bad = []
+    for est in ("pathwise", "standard"):
+        got, _ = mll_grad_estimate(x, y, params, v, targets, est,
+                                   backend="cuda")
+        ref, _ = mll_grad_estimate(x, y, params, v, targets, est, bm=512,
+                                   bn=512, backend="streamed")
+        scale = max(r.abs().max().item() for r in ref.leaves)
+        errs = [(a - b).abs().max().item() / scale
+                for a, b in zip(got.leaves, ref.leaves)]
+        ok = all(math.isfinite(e) and e <= TOL_GRAD for e in errs)
+        emit({"phase": "grad", "estimator": est, "n": 2000, "rel_err_per_leaf":
+              errs, "tol_rel": TOL_GRAD, "ok": ok})
+        if not ok:
+            bad.append(est)
+    if bad:
+        raise AssertionError(f"kernel gradient disagrees for {bad}")
+
+
 def phase_serve(torch, tiled) -> tuple:
-    """The port's serve path at full pol size through the kernel."""
+    """The port's serve path at full pol size through the kernels."""
     from repro_torch.core.predict import predictive_metrics
     from repro_torch.launch.serve import serve_gp
     from repro_torch.serve.artifact import servable_predict
@@ -173,8 +302,10 @@ def phase_serve(torch, tiled) -> tuple:
     launches = tiled.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    expected = report["cg_mvms"] + report["engine_dispatches"]
+    steps = len(report["steps"])
+    expected = report["cg_mvms"] + steps + report["engine_dispatches"]
     got = launches[tiled.KERNEL_NAME]
+    got_bwd, expected_bwd = launches[tiled.BWD_KERNEL_NAME], 2 * steps
     for st in report["steps"]:
         emit({"phase": "serve", **st})
     # Right answers: the served model on the card vs its plain version on
@@ -202,6 +333,7 @@ def phase_serve(torch, tiled) -> tuple:
         "cg_mvms": report["cg_mvms"],
         "engine_dispatches": report["engine_dispatches"],
         "kernel_launches": got, "expected_launches": expected,
+        "bwd_kernel_launches": got_bwd, "expected_bwd_launches": expected_bwd,
         "host_syncs": sum(st["host_syncs"] for st in report["steps"]),
         "peak_mem_bytes": peak,
         "latency_ms_p50": report["latency_ms_p50"],
@@ -219,6 +351,9 @@ def phase_serve(torch, tiled) -> tuple:
         problems.append("non-finite solver residual")
     if got == 0 or got != expected:
         problems.append(f"kernel launches {got} != expected {expected}")
+    if got_bwd == 0 or got_bwd != expected_bwd:
+        problems.append(f"backward kernel launches {got_bwd} != expected "
+                        f"{expected_bwd}")
     if not all(math.isfinite(summary[k]) for k in ("rmse_test", "llh_test")):
         problems.append("non-finite test metrics")
     if not all(e <= TOL_SERVE_VS_CPU for e in serve_err.values()):
@@ -228,17 +363,137 @@ def phase_serve(torch, tiled) -> tuple:
     return summary, launches, run
 
 
-def phase_profile(torch, run) -> dict:
-    """Where one outer step's time goes, after the serve run: the CG solve
-    and the autograd gradient timed apart (host clock + synchronise), then
-    one outer step and 5 requests under ``torch.profiler`` for the device's
-    busy share and its top kernels."""
+def _train_args(**over) -> SimpleNamespace:
+    """The train CLI's flags at their defaults, with ``over`` applied."""
+    from repro_torch.launch.train import build_parser
+
+    args = build_parser().parse_args([])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def phase_train(torch, tiled) -> tuple:
+    """The port's train entry point at full pol size, in two runs, each
+    with the launch counts set to 0 just before it and read just after."""
+    from repro_torch.launch.train import run_gp
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    runs = {
+        "a_pathwise_warm": _train_args(
+            max_n=0, pathwise=True, warm_start=True, steps=20, eval_every=10,
+            ckpt_every=10, ckpt_dir=str(CKPT_DIR), device="cuda"),
+        "b_defaults_standard_cold": _train_args(
+            max_n=0, steps=3, eval_every=3, device="cuda"),
+    }
+    problems, totals, fits = [], {k: 0 for k in tiled.LAUNCHES}, {}
+    for label, args in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tiled.reset_launch_counts()
+        out, res = run_gp(args)
+        torch.cuda.synchronize()
+        launches = tiled.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        h = res.history
+        steps = len(h["iters"])
+        evals = len(h["eval_step"])
+        expected = {
+            tiled.KERNEL_NAME: int(h["mvms"].sum()) + steps
+            + int(h["eval_mvms"].sum()) + evals,
+            tiled.BWD_KERNEL_NAME: 2 * steps,
+        }
+        for k in totals:
+            totals[k] += launches[k]
+        ckpts = sorted(p.name for p in CKPT_DIR.glob("step_*.npz")) \
+            if args.ckpt_dir else []
+        rec = {"phase": "train", "run": label, "estimator":
+               "pathwise" if args.pathwise else "standard",
+               "warm_start": args.warm_start, "precond_rank": args.precond_rank,
+               "n_train": int(res.state.carry_v.shape[0]),
+               "num_probes": args.probes, "steps": steps,
+               "step_time_s": [float(t) for t in h["step_time_s"]],
+               "cg_iters": [int(i) for i in h["iters"]],
+               "cg_mvms": int(h["mvms"].sum()),
+               "eval_step": h["eval_step"].tolist(),
+               "eval_mvms": h["eval_mvms"].tolist(),
+               "eval_rmse": out["eval_rmse"], "eval_llh": out["eval_llh"],
+               "final_res_y": out["final_res_y"],
+               "final_res_z": out["final_res_z"],
+               "total_time_s": out["total_time_s"],
+               "launches": launches, "expected_launches": expected,
+               "peak_mem_bytes": peak, "checkpoints": ckpts}
+        emit(rec)
+        fits[label] = (args, res)
+        for k, want in expected.items():
+            if launches[k] == 0 or launches[k] != want:
+                problems.append(f"{label}: {k} launches {launches[k]} != "
+                                f"expected {want}")
+        values = [out["final_res_y"], out["final_res_z"], *out["eval_rmse"],
+                  *out["eval_llh"], *res.history["hypers"].ravel().tolist()]
+        if not all(math.isfinite(x) for x in values):
+            problems.append(f"{label}: non-finite output")
+        if evals != steps // args.eval_every:
+            problems.append(f"{label}: {evals} evaluations")
+        if args.ckpt_dir and ckpts != ["step_10.npz", "step_20.npz"]:
+            problems.append(f"{label}: checkpoints {ckpts}")
+    problems += _train_vs_cpu(torch)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return totals, fits
+
+
+def _train_vs_cpu(torch) -> list:
+    """Three outer steps (pathwise, warm start, rank-100 preconditioner, 8
+    CG iterations each) on the card and on the CPU from one initial state,
+    carried to the card through a checkpoint: hyperparameters per step."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.driver import fit
+    from repro_torch.core.outer import OuterConfig, init_outer_state
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.solvers import SolverConfig
+
+    cfg = OuterConfig(
+        estimator="pathwise", warm_start=True, num_probes=16,
+        num_rff_pairs=256, num_steps=3, backend="cuda",
+        solver=SolverConfig(tolerance=0.0, max_epochs=8, precond_rank=100))
+    cpu = load_dataset("pol", max_n=667, device="cpu")
+    gpu = load_dataset("pol", max_n=667, device="cuda")
+    state = init_outer_state(cfg, cpu.x_train,
+                             generator=torch.Generator().manual_seed(3))
+    ckpt = CKPT_DIR / "cpu_to_card"
+    save_checkpoint(str(ckpt), 0, state)
+    template = init_outer_state(
+        cfg, gpu.x_train, generator=torch.Generator(device="cuda").manual_seed(3))
+    on_card, _ = restore_checkpoint(str(ckpt), template)
+    a = fit(cpu.x_train, cpu.y_train, cfg, state=state).history["hypers"]
+    b = fit(gpu.x_train, gpu.y_train, cfg, state=on_card).history["hypers"]
+    errs = [float(abs(b[i] - a[i]).max() / abs(a[i]).max())
+            for i in range(len(a))]
+    ok = len(a) == len(b) == 3 and all(e <= TOL_TRAIN_VS_CPU for e in errs)
+    emit({"phase": "train", "run": "small_card_vs_cpu",
+          "n_train": int(cpu.x_train.shape[0]), "rel_err_per_step": errs,
+          "tol_rel": TOL_TRAIN_VS_CPU, "ok": ok})
+    return [] if ok else [f"card vs CPU trajectory: {errs}"]
+
+
+def phase_profile(torch, args, res) -> dict:
+    """Where one outer step of train run (a) goes: the preconditioner build,
+    the CG solve and the gradient timed apart (host clock + synchronise),
+    then one outer step under ``torch.profiler`` for the device's busy
+    share and its top kernels."""
     from repro_torch.core.estimators import build_system_targets
     from repro_torch.core.gradients import mll_grad_estimate
     from repro_torch.core.outer import outer_step
-    from repro_torch.solvers import HOperator, solve
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.launch.train import build_config
+    from repro_torch.solvers import HOperator
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.solvers.precond import build_preconditioner
 
-    state, cfg, ds = run.fit.state, run.cfg, run.dataset
+    cfg = build_config(args)
+    state = res.state
+    ds = load_dataset(args.dataset, max_n=args.max_n, device="cuda")
     x, y = ds.x_train, ds.y_train
 
     def timed(fn):
@@ -252,28 +507,30 @@ def phase_profile(torch, run) -> dict:
         targets = build_system_targets(state.probes, x, y, state.params)
         op = HOperator(x=x, params=state.params, backend=cfg.backend,
                        bm=cfg.bm, bn=cfg.bn)
-        res, solve_s = timed(lambda: solve(op, targets, state.carry_v,
-                                           cfg.solver))
+        pc, precond_s = timed(lambda: build_preconditioner(
+            op, cfg.solver.precond_rank))
+        sol, solve_s = timed(lambda: solve_cg(op, targets, state.carry_v,
+                                              cfg.solver, precond=pc))
     _, grad_s = timed(lambda: mll_grad_estimate(
-        x, y, state.params, res.v, targets, cfg.estimator, bm=cfg.bm,
-        bn=cfg.bn))
+        x, y, state.params, sol.v, targets, cfg.estimator, bm=cfg.bm,
+        bn=cfg.bn, backend=cfg.backend))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         outer_step(state, x, y, cfg)
-        for i in range(5):
-            run.engine.submit(ds.x_test[64 * i:64 * (i + 1)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    rec = {"phase": "profile", "cg_iters": res.iters, "cg_solve_s": solve_s,
-           "grad_s": grad_s, "window": "1 outer step + 5 requests",
-           "window_wall_s": wall,
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    rec = {"phase": "profile", "run": "a_pathwise_warm",
+           "cg_iters": sol.iters, "precond_build_s": precond_s,
+           "cg_solve_s": solve_s, "grad_s": grad_s,
+           "window": "1 outer step", "window_wall_s": wall,
+           "device_kernel_launches": sum(e.count for e in kernels),
            "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
            "device_idle_share": 1.0 - busy_us / 1e6 / wall if busy_us
            else "not measured",
@@ -282,6 +539,17 @@ def phase_profile(torch, run) -> dict:
                            for e in top]}
     emit(rec)
     return rec
+
+
+def _kernel_entry(name, source, replaces, launches, measured) -> dict:
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches}
+    if measured is not None:
+        entry.update({k: measured[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+        entry["rel_err"] = measured["rel_err"]
+    return entry
 
 
 def main() -> int:
@@ -315,31 +583,49 @@ def main() -> int:
           "registers_per_thread": regs, "instantiations_without_spills": spills})
 
     failures = []
-    main_entry, launches = None, {tiled.KERNEL_NAME: 0}
+    fwd_entry = bwd_entry = None
+    path_launches = []
     try:
-        main_entry = phase_kernels(torch, tiled, registry)
+        fwd_entry = phase_kernels(torch, tiled, registry)
     except Exception:  # every phase runs; any failure fails the smoke
         traceback.print_exc()
         failures.append("kernels")
     try:
-        _, launches, run = phase_serve(torch, tiled)
-        phase_profile(torch, run)
+        bwd_entry = phase_kernels_bwd(torch, tiled, registry)
+        phase_grad(torch)
+    except Exception:
+        traceback.print_exc()
+        failures.append("kernels_bwd")
+    try:
+        _, launches, _ = phase_serve(torch, tiled)
+        path_launches.append(launches)
     except Exception:
         traceback.print_exc()
         failures.append("serve")
+    try:
+        launches, fits = phase_train(torch, tiled)
+        path_launches.append(launches)
+        phase_profile(torch, *fits["a_pathwise_warm"])
+    except Exception:
+        traceback.print_exc()
+        failures.append("train")
 
-    entry = {"name": tiled.KERNEL_NAME, "route": "cuda",
-             "source": "src/repro_torch/csrc/kernel_mvm.cu",
-             "replaces": "src/repro/kernels/tiled.py:98",
-             "launches": launches[tiled.KERNEL_NAME]}
-    if main_entry is not None:
-        entry.update({k: main_entry[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+    def total(name):
+        return sum(counts[name] for counts in path_launches)
+
+    entries = [
+        _kernel_entry(tiled.KERNEL_NAME, "src/repro_torch/csrc/kernel_mvm.cu",
+                      "src/repro/kernels/tiled.py:98",
+                      total(tiled.KERNEL_NAME), fwd_entry),
+        _kernel_entry(tiled.BWD_KERNEL_NAME,
+                      "src/repro_torch/csrc/kernel_mvm_bwd.cu",
+                      "src/repro/kernels/tiled.py:131",
+                      total(tiled.BWD_KERNEL_NAME), bwd_entry),
+    ]
     if failures:
         fail(f"phases failed: {failures}", code=1)
     print(smi, flush=True)
-    emit({"kernels": [entry]})
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

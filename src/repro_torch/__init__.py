@@ -3,9 +3,10 @@
 The package mirrors ``src/repro`` module for module; the JAX package stays
 the reference that the port is tested against. The port imports ``torch``,
 ``numpy`` and the standard library only — never ``jax`` and nothing of
-``repro``. Its forward distance-tile MVM is a hand-written CUDA kernel for
-Hopper (``csrc/kernel_mvm.cu``); on CPU tensors every wrapper runs its plain
-PyTorch version instead.
+``repro``. Its distance-tile MVM and the backward of it (the
+hyper-gradient) are hand-written CUDA kernels for Hopper
+(``csrc/kernel_mvm.cu``, ``csrc/kernel_mvm_bwd.cu``); on CPU tensors every
+wrapper runs its plain PyTorch version instead.
 
 Entry points default to ``device="cuda"`` and raise when no card is
 present; only an explicit ``device="cpu"`` runs on the CPU.

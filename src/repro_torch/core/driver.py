@@ -1,28 +1,47 @@
-"""The fit loop (fragment of ``repro.core.driver``).
+"""The fit loop with evaluation and checkpoints; port of the single-lane part
+of ``repro.core.driver``.
 
-Runs ``cfg.num_steps`` outer steps one at a time and keeps the per-step
-history. Checkpoints, the budget policy and the eval cadence arrive with
-the training slice.
+Runs ``cfg.num_steps`` outer steps one at a time, keeps the per-step
+history, evaluates on ``(x_test, y_test)`` every ``eval_every`` steps and
+checkpoints every ``ckpt_every`` steps and at the end, with the reference's
+restart semantics. The budget policy, lanes, the SGD learning-rate search
+and the initialisation heuristic arrive with later slices.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (
+    latest_step,
+    load_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.core.estimators import (
+    PATHWISE,
+    ProbeState,
+    build_system_targets,
+    init_probes,
+)
 from repro_torch.core.outer import (
     OuterConfig,
     OuterState,
+    effective_kind,
     init_outer_state,
     outer_step,
 )
+from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.solvers import HOperator, solve
 
 HISTORY_KEYS = ("res_y", "res_z", "iters", "epochs", "mvms", "host_syncs",
                 "hypers", "grad_norm", "data_fit", "step_time_s")
+EVAL_KEYS = ("eval_step", "eval_rmse", "eval_llh", "eval_mvms")
 
 
 @dataclass
@@ -30,7 +49,7 @@ class FitResult:
     """What `fit` returns: final state + per-step history."""
 
     state: OuterState
-    history: dict  # str -> np.ndarray over steps
+    history: dict  # str -> np.ndarray over steps (eval_* over evaluations)
     wall_time_s: float
 
 
@@ -46,32 +65,115 @@ def fit(
     generator: Optional[torch.Generator] = None,
     init_params: Optional[HyperParams] = None,
     state: Optional[OuterState] = None,
+    x_test: Optional[torch.Tensor] = None,
+    y_test: Optional[torch.Tensor] = None,
+    eval_every: int = 0,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    resume: bool = True,
     verbose: bool = False,
 ) -> FitResult:
-    """Run ``cfg.num_steps`` outer MLL steps from ``state`` (or a fresh one).
+    """Run ``cfg.num_steps`` outer MLL steps with optional eval/checkpoints.
 
-    ``generator`` draws the probes of a fresh state; ``state`` resumes from
-    a given one (e.g. the reference's initial state carried across by
-    :mod:`repro_torch.interop`). Each step's time is taken on the host
-    after a device synchronise.
+    ``generator`` draws the probes of a fresh state, the fresh probes of
+    every step without warm starting, and the standard estimator's eval
+    probes (a generator on ``x``'s device seeded with 0 when None).
+    ``state`` starts from a given state instead (e.g. the reference's
+    initial state carried across by :mod:`repro_torch.interop`).
+
+    Restart semantics (the reference's): if ``ckpt_dir`` holds a checkpoint
+    and ``resume``, training continues from it, carry and probes included;
+    the generator's state rides in the checkpoint's sidecar, so a resumed
+    fit draws what an uninterrupted one would. Evaluation runs after every
+    step that is a multiple of ``eval_every`` (when ``x_test`` is given),
+    a checkpoint after every multiple of ``ckpt_every`` and one at the end.
+    Each step's time is taken on the host after a device synchronise.
     """
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
     if state is None:
         state = init_outer_state(cfg, x, init_params=init_params,
                                  generator=generator)
-    history = {k: [] for k in HISTORY_KEYS}
+    if ckpt_dir and resume and latest_step(ckpt_dir) is not None:
+        state, _ = restore_checkpoint(ckpt_dir, state)
+        saved = load_metadata(ckpt_dir).get("generator")
+        if saved is not None:
+            generator.set_state(torch.tensor(saved, dtype=torch.uint8))
+
+    def checkpoint(step: int) -> None:
+        save_checkpoint(ckpt_dir, step, state,
+                        metadata={"generator": generator.get_state().tolist()})
+
+    history = {k: [] for k in HISTORY_KEYS + EVAL_KEYS}
     t0 = time.perf_counter()
     while state.step < cfg.num_steps:
         ts = time.perf_counter()
-        state, metrics = outer_step(state, x, y, cfg)
+        state, metrics = outer_step(state, x, y, cfg, generator=generator)
         _sync(state.carry_v)
         metrics["step_time_s"] = time.perf_counter() - ts
         for k in HISTORY_KEYS:
             history[k].append(metrics[k])
+        step = state.step
+        if eval_every and x_test is not None and step % eval_every == 0:
+            m = evaluate(x, state, cfg, x_test, y_test, generator=generator)
+            for k, val in (("eval_step", step), ("eval_rmse", m["rmse"]),
+                           ("eval_llh", m["llh"]), ("eval_mvms", m["mvms"])):
+                history[k].append(val)
+            if verbose:
+                print(f"[fit] step {step}: rmse={m['rmse']:.4f} "
+                      f"llh={m['llh']:.4f}", flush=True)
+        if ckpt_dir and ckpt_every and step % ckpt_every == 0:
+            checkpoint(step)
         if verbose:
-            print(f"[fit] step {state.step}/{cfg.num_steps} "
+            print(f"[fit] step {step}/{cfg.num_steps} "
                   f"res_y={metrics['res_y']:.4f} res_z={metrics['res_z']:.4f} "
                   f"iters={metrics['iters']} ({metrics['step_time_s']:.2f}s)",
                   flush=True)
+    if ckpt_dir:
+        checkpoint(cfg.num_steps)
     return FitResult(state=state,
                      history={k: np.asarray(v) for k, v in history.items()},
                      wall_time_s=time.perf_counter() - t0)
+
+
+def evaluate(
+    x: torch.Tensor,
+    state: OuterState,
+    cfg: OuterConfig,
+    x_test: torch.Tensor,
+    y_test: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    eval_probes: Optional[ProbeState] = None,
+) -> dict:
+    """Test RMSE / mean predictive LLH, and the H MVMs the eval solves took.
+
+    Pathwise estimator: zero extra solves (eq. 16) from the current carry.
+    Standard estimator: the s pathwise eval solves the paper charges to the
+    standard path (Fig. 1), from zero, with eval probes drawn from
+    ``generator`` unless given (``eval_probes``); ``v_y`` comes from the
+    carry.
+    """
+    kind = effective_kind(cfg, state.params)
+    with torch.no_grad():
+        if cfg.estimator == PATHWISE:
+            v, probes, mvms = state.carry_v, state.probes, 0
+        else:
+            n, d = x.shape
+            if eval_probes is None:
+                eval_probes = init_probes(
+                    generator, PATHWISE, n, d, state.carry_v.shape[1] - 1,
+                    cfg.num_rff_pairs, kind=kind, dtype=x.dtype,
+                    device=x.device)
+            targets = build_system_targets(
+                eval_probes, x, torch.zeros((n,), dtype=x.dtype,
+                                            device=x.device), state.params)
+            op = HOperator(x=x, params=state.params, kind=kind,
+                           backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
+            scfg = (cfg.solver if cfg.solver.kind == kind
+                    else replace(cfg.solver, kind=kind))
+            res = solve(op, targets[:, 1:], None, scfg)
+            v = torch.cat([state.carry_v[:, :1], res.v], dim=1)
+            probes, mvms = eval_probes, res.mvms
+        pred = pathwise_predict(x, x_test, v, probes, state.params, kind=kind)
+        m = predictive_metrics(y_test, pred, state.params)
+    return {"rmse": float(m["rmse"]), "llh": float(m["llh"]), "mvms": mvms}

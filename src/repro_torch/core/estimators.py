@@ -4,7 +4,9 @@ Port of ``repro.core.estimators``. The right-hand sides of
 ``H [v_y, v_1..v_s] = [y, b_1..b_s]`` are ``b_j = z_j`` (standard) or
 ``b_j = f(x) + sigma * w_eps`` with ``f`` an RFF prior sample (pathwise).
 Under warm starting the base draws are fixed once; only their
-reparameterisation in theta changes. A :class:`ProbeState` built directly
+reparameterisation in theta changes; without warm starting
+:func:`resample_probes` draws them afresh every outer step. A
+:class:`ProbeState` built directly
 from given draws is how the reference's draws are injected.
 """
 from __future__ import annotations
@@ -56,6 +58,20 @@ def init_probes(
                             device=device)
         return ProbeState(estimator=PATHWISE, z=None, rff=rff, w_eps=w_eps)
     raise ValueError(f"unknown estimator {estimator!r}")
+
+
+def resample_probes(generator: Optional[torch.Generator], probes: ProbeState,
+                    x: torch.Tensor) -> ProbeState:
+    """Fresh base randomness with the shapes of ``probes`` (the
+    non-warm-start regime; counterpart of the reference's
+    ``_resample_probes``)."""
+    n, d = x.shape
+    if probes.estimator == STANDARD:
+        return init_probes(generator, STANDARD, n, d, probes.z.shape[1],
+                           dtype=x.dtype, device=x.device)
+    return init_probes(generator, PATHWISE, n, d, probes.rff.w.shape[1],
+                       num_rff_pairs=probes.rff.z.shape[0],
+                       kind=probes.rff.kind, dtype=x.dtype, device=x.device)
 
 
 def probe_targets(probes: ProbeState, x: torch.Tensor,

@@ -6,10 +6,18 @@ held fixed, every hyperparameter's gradient is the gradient of the scalar
     S(theta) = sum_t c_t * a_t^T H(theta) b_t
 
 (``c = [1/2, -1/(2s), ...]``; ``b = a`` for pathwise, ``b = [v_y | z]`` for
-standard). One reverse pass of ``torch.autograd`` through the plain tiled
-MVM :func:`repro_torch.solvers.operator.kernel_mvm_tiled` gives all of them,
-as the reference runs ``jax.value_and_grad`` through its twin. Autograd
-keeps a few (bm, bn) tiles per block pair, i.e. a few n^2 * 4 bytes.
+standard). One reverse pass of ``torch.autograd`` gives all of them, as the
+reference runs ``jax.value_and_grad``. The MVM differentiated follows the
+operator's backend:
+
+* ``cuda``: :func:`repro_torch.kernels.ops.kernel_mvm`, whose
+  ``autograd.Function`` runs the forward tile kernel once and the backward
+  tile kernel twice (``du`` and ``dw``) on CUDA tensors, and their plain
+  versions on CPU tensors. Nothing of size n^2 is kept.
+* ``streamed`` and ``dense``: the plain tiled MVM
+  :func:`repro_torch.solvers.operator.kernel_mvm_tiled`, as the reference
+  differentiates its twin for every backend. Autograd keeps a few (bm, bn)
+  tiles per block pair, i.e. a few n^2 * 4 bytes.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 
 from repro_torch.core.estimators import PATHWISE, STANDARD
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.kernels.ops import kernel_mvm
 from repro_torch.solvers.operator import kernel_mvm_tiled
 
 
@@ -29,8 +38,11 @@ class GradAux(NamedTuple):
     quad_value: torch.Tensor  # value of the surrogate S
 
 
-def _weighted_quadratic(params, x, a, b, weights, kind, bm, bn):
-    kb = kernel_mvm_tiled(x, x, b, params, kind=kind, bm=bm, bn=bn)
+def _weighted_quadratic(params, x, a, b, weights, kind, bm, bn, backend):
+    if backend == "cuda":
+        kb = kernel_mvm(x, x, b, params, kind=kind)
+    else:
+        kb = kernel_mvm_tiled(x, x, b, params, kind=kind, bm=bm, bn=bn)
     hb = kb + (params.noise**2) * b
     return torch.sum(weights * torch.sum(a * hb, dim=0))
 
@@ -45,12 +57,15 @@ def mll_grad_estimate(
     kind: Optional[str] = None,
     bm: int = 1024,
     bn: int = 1024,
+    backend: str = "streamed",
 ) -> tuple[HyperParams, GradAux]:
     """Stochastic gradient of L wrt the raw hyperparameters.
 
     Args:
       v: (n, 1+s) solver solutions [v_y | v_1..v_s].
       targets: (n, 1+s) right-hand sides [y | b_1..b_s].
+      backend: the operator's backend; ``cuda`` differentiates the kernel
+        pair, any other the plain tiled MVM (tiles ``bm`` x ``bn``).
     Returns:
       (grads as a `HyperParams` of raw-leaf gradients, `GradAux`)
     """
@@ -71,7 +86,7 @@ def mll_grad_estimate(
     leaves = [p.detach().requires_grad_(True) for p in params.leaves]
     with torch.enable_grad():
         quad = _weighted_quadratic(params.with_leaves(leaves), x, a, b,
-                                   weights, kind, bm, bn)
+                                   weights, kind, bm, bn, backend)
         grads = torch.autograd.grad(quad, leaves)
     data_fit = -0.5 * torch.sum(y * v[:, 0])
     return params.with_leaves(grads), GradAux(data_fit=data_fit,

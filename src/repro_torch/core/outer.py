@@ -3,8 +3,10 @@
 Port of the single-lane part of ``repro.core.outer``. One outer step:
 build targets -> warm start from the carry -> inner solve -> gradient
 assembly -> Adam ascent -> new carry. The reference's ``outer_scan`` is a
-Python loop here (:func:`repro_torch.core.driver.fit`). Lanes, the adaptive
-budget policy and ``extend_state`` arrive with later slices.
+Python loop here (:func:`repro_torch.core.driver.fit`). Without warm
+starting, each step draws fresh probes from the fit's ``torch.Generator``
+(or takes them as given) and solves from zero. Lanes, the adaptive budget
+policy and ``extend_state`` arrive with later slices.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.core.estimators import (
     ProbeState,
     build_system_targets,
     init_probes,
+    resample_probes,
 )
 from repro_torch.core.gradients import mll_grad_estimate
 from repro_torch.gp.hyperparams import HyperParams
@@ -90,36 +93,40 @@ def init_outer_state(
 
 
 def outer_step(state: OuterState, x: torch.Tensor, y: torch.Tensor,
-               cfg: OuterConfig) -> tuple[OuterState, dict]:
+               cfg: OuterConfig, generator: Optional[torch.Generator] = None,
+               probes: Optional[ProbeState] = None) -> tuple[OuterState, dict]:
     """One outer MLL step: solve -> gradient -> Adam -> carry.
 
-    Only the warm-start regime is ported: fresh probes per step
-    (``warm_start=False``) need the reference's per-step key splitting and
-    arrive with the training slice.
+    With ``cfg.warm_start`` the probes of ``state`` are kept and the solve
+    starts from the carry. Without it the step solves from zero with fresh
+    probes: ``probes`` when given (how a test hands over the reference's
+    per-step draws), else drawn from ``generator``.
     """
-    if not cfg.warm_start:
-        raise NotImplementedError(
-            "warm_start=False (per-step probe resampling) is not ported yet "
-            "(ROADMAP Queue 1, training slice)")
     kind = effective_kind(cfg, state.params)
+    if cfg.warm_start:
+        probes, v0 = state.probes, state.carry_v
+    else:
+        if probes is None:
+            probes = resample_probes(generator, state.probes, x)
+        v0 = None
     with torch.no_grad():
-        targets = build_system_targets(state.probes, x, y, state.params)
+        targets = build_system_targets(probes, x, y, state.params)
         op = HOperator(x=x, params=state.params, kind=kind,
                        backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
         scfg = (cfg.solver if cfg.solver.kind == kind
                 else replace(cfg.solver, kind=kind))
-        res = solve(op, targets, state.carry_v, scfg)
+        res = solve(op, targets, v0, scfg)
 
     grads, aux = mll_grad_estimate(
         x, y, state.params, res.v, targets, cfg.estimator,
-        kind=kind, bm=cfg.bm, bn=cfg.bn,
+        kind=kind, bm=cfg.bm, bn=cfg.bn, backend=cfg.backend,
     )
     with torch.no_grad():
         new_params, new_adam = adam_update(
             grads, state.adam, state.params, cfg.adam, maximize=True)
         grad_norm = torch.sqrt(sum(torch.sum(g**2) for g in grads.leaves))
     new_state = OuterState(
-        params=new_params, adam=new_adam, probes=state.probes,
+        params=new_params, adam=new_adam, probes=probes,
         carry_v=res.v, step=state.step + 1,
     )
     metrics = {

@@ -14,6 +14,25 @@ module never sees JAX). Layouts:
 ``servable_from_numpy``::
 
     {"x", "correction", "rff": {...}, "params": {...}, "kind"}
+
+``outer_state_from_checkpoint`` reads a ``step_<k>.npz`` that the
+reference's ``fit(ckpt_dir=...)`` wrote. Its leaves are those of
+``jax.tree.leaves`` of the reference's ``OuterState``, in this order
+(18 leaves for the standard estimator, 21 for pathwise):
+
+    0-2    params: raw_lengthscales, raw_signal, raw_noise
+    3      adam.step
+    4-6    adam.mu (as params)
+    7-9    adam.nu (as params)
+    10     probes.z                                  (standard)
+    10-13  probes.rff.z, probes.rff.u, probes.rff.w, probes.w_eps (pathwise)
+    -7     carry_v
+    -6     key          (JAX PRNG key; read and dropped)
+    -5     step
+    -4..-1 last_res_y, last_res_z, last_iters, last_epochs (dropped)
+
+The kernel name is static in the reference (not a leaf), so the caller
+names it.
 """
 from __future__ import annotations
 
@@ -22,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_leaves
 from repro_torch.core.estimators import ProbeState
 from repro_torch.core.outer import OuterState
 from repro_torch.gp.hyperparams import HyperParams
@@ -83,3 +103,36 @@ def servable_from_numpy(tree: dict, device="cpu") -> ServableGP:
         params=_params(tree["params"], device),
         kind=tree["kind"],
     )
+
+
+_REF_ESTIMATOR_BY_LEAVES = {18: "standard", 21: "pathwise"}
+
+
+def outer_state_from_checkpoint(npz_path: str, kernel: str = "matern32",
+                                device="cpu") -> OuterState:
+    """The port's `OuterState` from a checkpoint the reference wrote (leaf
+    order in the module docstring); ``kernel`` names the params' and the
+    RFF draws' kernel."""
+    leaves = load_leaves(npz_path)
+    estimator = _REF_ESTIMATOR_BY_LEAVES.get(len(leaves))
+    if estimator is None:
+        raise ValueError(f"{npz_path}: {len(leaves)} leaves is not a "
+                         "reference OuterState (18 or 21)")
+
+    def params(i):
+        return {"raw_lengthscales": leaves[i], "raw_signal": leaves[i + 1],
+                "raw_noise": leaves[i + 2], "kernel": kernel}
+
+    if estimator == "standard":
+        probes = {"estimator": estimator, "z": leaves[10], "rff": None,
+                  "w_eps": None}
+    else:
+        probes = {"estimator": estimator, "z": None,
+                  "rff": {"z": leaves[10], "u": leaves[11], "w": leaves[12],
+                          "kind": kernel},
+                  "w_eps": leaves[13]}
+    return outer_state_from_numpy(
+        {"params": params(0),
+         "adam": {"step": leaves[3], "mu": params(4), "nu": params(7)},
+         "probes": probes, "carry_v": leaves[-7], "step": leaves[-5]},
+        device=device)

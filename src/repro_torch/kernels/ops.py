@@ -1,30 +1,59 @@
-"""Public op around the forward distance-tile MVM; port of ``repro.kernels.ops``.
+"""Public differentiable op around the distance-tile kernels; port of
+``repro.kernels.ops``.
 
 ``kernel_mvm(x1, x2, v, params, kind=...)`` computes ``K(x1, x2; theta) @ v``
 for any registered kernel: inputs are pre-scaled by ``1/ell``, the unit
-kernel runs through :func:`repro_torch.kernels.tiled.kernel_mvm_unit` (the
-CUDA kernel on CUDA tensors, its plain version on CPU tensors), and
-``signal**2`` is applied after. ``h_mvm`` adds ``sigma^2 v``.
+kernel runs through :class:`_UnitMVM`, and ``signal**2`` is applied after.
+``h_mvm`` adds ``sigma^2 v``.
 
-Forward only: on CUDA, inputs that require grad raise (the backward kernel
-arrives as a ``torch.autograd.Function`` with the training slice). The
-hyper-gradient differentiates the plain ``solvers.operator.kernel_mvm_tiled``
-instead, as the reference does. Ragged n, m and s are masked inside the
-kernel, so nothing is padded here.
+:class:`_UnitMVM` is the counterpart of the reference's ``_unit_mvm``
+custom VJP: its forward is :func:`repro_torch.kernels.tiled.kernel_mvm_unit`
+and its backward computes ``du`` and ``dw`` with the backward tile kernel
+(``dw`` by the (u, w) / (g, v) symmetry) and ``dv`` with the forward kernel,
+roles swapped, each only where autograd asks for it. On CUDA tensors these
+are the hand-written kernels, on CPU tensors their plain versions. The
+lengthscale and signal gradients flow through the plain pre-scaling
+``x / ell`` and post-scaling ``signal**2 * out``, as in the reference: one
+sweep over distance tiles serves every hyperparameter. Ragged n, m and s are
+masked inside the kernels, so nothing is padded here.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.gp.hyperparams import HyperParams, resolve_kind
-from repro_torch.kernels.tiled import kernel_mvm_unit
+from repro_torch.kernels.tiled import kernel_mvm_bwd_unit, kernel_mvm_unit
+
+
+class _UnitMVM(torch.autograd.Function):
+    """``kappa(u, w) @ v`` on pre-scaled fp32 inputs, with the kernel pair
+    as its forward and backward."""
+
+    @staticmethod
+    def forward(ctx, u, w, v, kind):
+        ctx.kind = kind
+        ctx.save_for_backward(u, w, v)
+        return kernel_mvm_unit(u.detach(), w.detach(), v.detach(), kind)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u, w, v = (t.detach() for t in ctx.saved_tensors)
+        g = g.to(torch.float32).contiguous()
+        need_u, need_w, need_v, _ = ctx.needs_input_grad
+        du = kernel_mvm_bwd_unit(u, w, g, v, ctx.kind) if need_u else None
+        dw = kernel_mvm_bwd_unit(w, u, v, g, ctx.kind) if need_w else None
+        dv = kernel_mvm_unit(w, u, g, ctx.kind) if need_v else None
+        return du, dw, dv, None
 
 
 def kernel_mvm(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
                params: HyperParams, kind: Optional[str] = None) -> torch.Tensor:
-    """K(x1, x2; theta) @ v via the forward tile kernel.
+    """K(x1, x2; theta) @ v via the distance-tile kernels, differentiable in
+    ``x1``, ``x2``, ``v`` and the hyperparameters.
 
     Args:
       x1: (n, d); x2: (m, d); v: (m, s) or (m,).
@@ -39,12 +68,12 @@ def kernel_mvm(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
     ell = params.lengthscales
     u = (x1 / ell).to(torch.float32).contiguous()
     w = (x2 / ell).to(torch.float32).contiguous()
-    out = kernel_mvm_unit(u, w, v.to(torch.float32).contiguous(), kind)
+    out = _UnitMVM.apply(u, w, v.to(torch.float32).contiguous(), kind)
     out = ((params.signal**2) * out).to(x1.dtype)
     return out[:, 0] if squeeze else out
 
 
 def h_mvm(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
           kind: Optional[str] = None) -> torch.Tensor:
-    """H_theta @ v = K @ v + sigma^2 v via the forward tile kernel."""
+    """H_theta @ v = K @ v + sigma^2 v via the distance-tile kernels."""
     return kernel_mvm(x, x, v, params, kind=kind) + (params.noise**2) * v

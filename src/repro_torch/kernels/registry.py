@@ -9,8 +9,9 @@ prior draws (Matérn-nu spectra are Student-t with 2*nu degrees of freedom:
 The sqrt floor is applied as ``maximum(r2, floor)`` (never ``r2 + floor``)
 so autograd sees an exactly-zero derivative below it; Matérn-1/2 uses the
 larger floor and its ``dkappa`` is exactly zero on the clamped region.
-The CUDA kernel (``csrc/kernel_mvm.cu``) evaluates the same formulas and
-floors; ``KIND_CODES`` is the integer it takes for each name.
+The CUDA kernels (``csrc/kernel_mvm.cu``, ``csrc/kernel_mvm_bwd.cu``)
+evaluate the same formulas and floors; ``KIND_CODES`` is the integer they
+take for each name.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ class KernelSpec(NamedTuple):
 
 KERNELS: dict[str, KernelSpec] = {}
 
-# Integer kind the CUDA kernel switches on (csrc/kernel_mvm.cu, enum Kind).
+# Integer kind the CUDA kernels switch on (csrc/*.cu, enum Kind).
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 

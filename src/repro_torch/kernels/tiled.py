@@ -1,22 +1,29 @@
-"""Forward distance-tile kernel MVM: the CUDA kernel and its plain version.
+"""Distance-tile kernels: the forward MVM and its backward, CUDA and plain.
 
-Computes ``out[i] = sum_j kappa(||u_i - w_j||^2) v_j`` on pre-scaled inputs
+Forward: ``out[i] = sum_j kappa(||u_i - w_j||^2) v_j`` on pre-scaled inputs
 ``u`` (n, d), ``w`` (m, d) and ``v`` (m, s), fp32, without materialising K.
-It replaces the TPU kernel ``kernel_mvm_pallas`` of the reference
-(``src/repro/kernels/tiled.py:98``); the design and its bound on an H100 are
-described at the top of ``csrc/kernel_mvm.cu``.
+Backward: ``du[i] = 2 sum_j D_ij (u_i - w_j)`` with ``D = (g v^T) .*
+dkappa/dr2``, the cotangent of ``u`` for the output cotangent ``g`` (n, s);
+with (u, w) and (g, v) swapped it is the cotangent of ``w``. They replace
+the TPU kernels ``kernel_mvm_pallas`` and ``kernel_mvm_bwd_pallas`` of the
+reference (``src/repro/kernels/tiled.py:98`` and ``:131``); the designs and
+their bounds on an H100 are described at the top of ``csrc/kernel_mvm.cu``
+and ``csrc/kernel_mvm_bwd.cu``.
 
-* :func:`kernel_mvm_cuda` launches the hand-written kernel on CUDA tensors
-  (and raises on anything else). It counts its launches in :data:`LAUNCHES`.
-* :func:`kernel_mvm_plain` is the same function in plain tiled PyTorch,
-  with ``r2`` by direct differences as in the kernel.
-* :func:`kernel_mvm_unit` picks between them by the device of its inputs:
-  the plain version for CPU tensors, the kernel for CUDA tensors. There is
-  no fallback from one to the other.
+* :func:`kernel_mvm_cuda` and :func:`kernel_mvm_bwd_cuda` launch the
+  hand-written kernels on CUDA tensors (and raise on anything else). They
+  count their launches in :data:`LAUNCHES`.
+* :func:`kernel_mvm_plain` and :func:`kernel_mvm_bwd_plain` are the same
+  functions in plain tiled PyTorch, with ``r2`` by direct differences as in
+  the kernels.
+* :func:`kernel_mvm_unit` and :func:`kernel_mvm_bwd_unit` pick between them
+  by the device of their inputs: the plain version for CPU tensors, the
+  kernel for CUDA tensors. There is no fallback from one to the other.
 
-The kernel is built from ``csrc/kernel_mvm.cu`` at first use with ``nvcc``
-(``sm_90a``) into ``build/repro_torch_kernels/`` of the checkout, as a shared
-library with a plain C interface loaded through ``ctypes``.
+The kernels are built from ``csrc/*.cu`` at first use with ``nvcc``
+(``sm_90a``; one compile per source, started together, then one link) into
+``build/repro_torch_kernels/`` of the checkout, as one shared library with a
+plain C interface loaded through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -35,20 +42,24 @@ import torch
 from repro_torch.kernels.registry import KIND_CODES, get_kernel
 
 KERNEL_NAME = "kernel_mvm_fwd"
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "kernel_mvm.cu"
+BWD_KERNEL_NAME = "kernel_mvm_bwd"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "kernel_mvm.cu", CSRC / "kernel_mvm_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Launches of each kernel wrapper since the last reset (chip_smoke.py reads
 # them to show the main path went through the kernels).
-LAUNCHES = {KERNEL_NAME: 0}
+LAUNCHES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
 
 # Shared-memory geometry of csrc/kernel_mvm.cu (BM = BN = 64, KS = BN + 16,
-# SC = 16 * TS with TS <= 8), for rejecting shapes before the launch.
+# SC = 16 * TS with TS <= 8) and csrc/kernel_mvm_bwd.cu (odd row strides,
+# d <= 96), for rejecting shapes before the launch.
 _BM, _BN, _KS, _MAX_TS = 64, 64, 80, 8
+_BWD_MAX_D = 96
 _MAX_SMEM_BYTES = 232_448
 
 _lib_lock = threading.Lock()
@@ -94,6 +105,34 @@ def kernel_mvm_plain(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     return torch.cat(rows)
 
 
+def kernel_mvm_bwd_plain(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                         v: torch.Tensor, kind: str = "matern32", bm: int = 512,
+                         bn: int = 512) -> torch.Tensor:
+    """Cotangent of ``u`` for ``kappa(u, w) @ v`` in plain tiled PyTorch.
+
+    ``du_i = 2 sum_j D_ij (u_i - w_j)`` with ``D = (g v^T) * dkappa(r2)``:
+    (n,d),(m,d),(n,s),(m,s) -> (n,d). Same arithmetic as the kernel: ``r2``
+    by direct differences, the registry slope, the sum in difference form,
+    accumulated over column tiles. Works on any device and dtype.
+    """
+    dkappa = get_kernel(kind).dkappa_dr2
+    n, d = u.shape
+    m = w.shape[0]
+    dtype = torch.result_type(u, g)
+    rows = []
+    for i in range(0, n, bm):
+        ui, gi = u[i:i + bm], g[i:i + bm]
+        acc = torch.zeros((ui.shape[0], d), dtype=dtype, device=u.device)
+        for j in range(0, m, bn):
+            diff = ui[:, None, :] - w[None, j:j + bn, :]
+            dt = (gi @ v[j:j + bn].T) * dkappa(torch.sum(diff * diff, dim=-1))
+            acc = acc + torch.einsum("ij,ijk->ik", dt, diff)
+        rows.append(2.0 * acc)
+    if not rows:
+        return torch.zeros((0, d), dtype=dtype, device=u.device)
+    return torch.cat(rows)
+
+
 # -- build and bind -----------------------------------------------------------
 
 
@@ -104,37 +143,46 @@ def _nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and Path(root, "bin", "nvcc").exists():
             return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build_kernels() -> Path:
-    """Compile ``csrc/kernel_mvm.cu`` for sm_90a (once per source content).
+    """Compile ``csrc/*.cu`` for sm_90a and link them into one library
+    (once per content of the sources).
 
-    Returns the path of the shared library; nvcc's ``-Xptxas -v`` report
-    (registers, shared memory, spills per instantiation) is kept beside it
-    as ``<library>.ptxas.txt``.
+    One ``nvcc -c`` per source runs at the same time, then one ``nvcc
+    -shared`` links the objects. Returns the path of the shared library;
+    nvcc's ``-Xptxas -v`` report (registers, shared memory, spills per
+    instantiation) is kept beside it as ``<library>.ptxas.txt``.
     """
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libkernel_mvm_{tag}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"libkernel_mvm_{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp, f"{src.stem}.o") for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src.name, log) for src, proc, log in zip(SOURCES, procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}:\n{log}" for name, log in failed))
+        lib = Path(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        Path(f"{out}.ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        Path(f"{out}.ptxas.txt").write_text("".join(logs))
+        os.replace(lib, out)
     return out
 
 
@@ -143,10 +191,14 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
-            fn = lib.repro_kernel_mvm_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            fwd = lib.repro_kernel_mvm_fwd
+            fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fwd.restype = ctypes.c_int
+            bwd = lib.repro_kernel_mvm_bwd
+            bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            bwd.restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -161,6 +213,42 @@ def _smem_bytes(d: int, s: int) -> int:
     return 4 * (_BM * d + d * _BN + _BN * 16 * ts + _BM * _KS)
 
 
+def _bwd_smem_bytes(d: int, s: int) -> int:
+    return 4 * ((_BM + _BN) * ((d | 1) + (s | 1)) + _BM * _KS)
+
+
+def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a 2-D contiguous fp32 CUDA tensor on one
+    device that does not require grad (the raw kernels are not
+    differentiable; :mod:`repro_torch.kernels.ops` wraps them)."""
+    first = next(iter(tensors.values()))
+    for arg, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name} is forward-only: its inputs must not require grad "
+                "(differentiate kernels.ops.kernel_mvm instead)")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not a CUDA "
+                             "device")
+        if t.device != first.device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, not fp32")
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be 2-D and contiguous")
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call one C entry point on the current stream; raise on its code."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = (_library().repro_cuda_error_string(rc).decode() if rc > 0
+               else "rejected arguments")
+        raise RuntimeError(f"{name} launch failed ({rc}): {msg}")
+    LAUNCHES[name] += 1
+
+
 def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                     kind: str = "matern32") -> torch.Tensor:
     """Launch the forward tile kernel on CUDA tensors; (n, s) fp32 result.
@@ -169,21 +257,7 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     not fp32, contiguous, 2-D CUDA tensors of one device, on mismatched
     shapes and on an unknown kind.
     """
-    if u.requires_grad or w.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "kernel_mvm_cuda is forward-only: its inputs must not require "
-            "grad (differentiate solvers.operator.kernel_mvm_tiled instead)")
-    for name, t in (("u", u), ("w", w), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"kernel_mvm_cuda: {name} is on {t.device}, "
-                             "not a CUDA device")
-        if t.device != u.device:
-            raise ValueError("kernel_mvm_cuda: inputs on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel_mvm_cuda: {name} is {t.dtype}, not fp32")
-        if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"kernel_mvm_cuda: {name} must be 2-D and "
-                             "contiguous")
+    _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
     (n, d), (m, dw), (mv, s) = u.shape, w.shape, v.shape
     if d != dw or m != mv:
         raise ValueError(f"kernel_mvm_cuda: shapes u{tuple(u.shape)} "
@@ -197,18 +271,39 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     out = torch.empty((n, s), dtype=torch.float32, device=u.device)
     if n == 0 or s == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.repro_kernel_mvm_fwd(
+    _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
             u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, m, d, s, KIND_CODES[kind], stream)
-    if rc != 0:
-        msg = (lib.repro_cuda_error_string(rc).decode() if rc > 0
-               else "rejected arguments")
-        raise RuntimeError(f"kernel_mvm_fwd launch failed ({rc}): {msg}")
-    LAUNCHES[KERNEL_NAME] += 1
+            n, m, d, s, KIND_CODES[kind])
     return out
+
+
+def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                        v: torch.Tensor, kind: str = "matern32") -> torch.Tensor:
+    """Launch the backward tile kernel on CUDA tensors; (n, d) fp32 result.
+
+    The same checks as :func:`kernel_mvm_cuda`, for u (n, d), w (m, d),
+    g (n, s) and v (m, s), with d <= 96.
+    """
+    _check_inputs("kernel_mvm_bwd_cuda", u=u, w=w, g=g, v=v)
+    (n, d), (m, dw), (ng, s), (mv, sv) = u.shape, w.shape, g.shape, v.shape
+    if d != dw or m != mv or n != ng or s != sv:
+        raise ValueError(
+            f"kernel_mvm_bwd_cuda: shapes u{tuple(u.shape)} w{tuple(w.shape)} "
+            f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
+    if kind not in KIND_CODES:
+        raise ValueError(f"kernel_mvm_bwd_cuda: no CUDA profile for {kind!r}")
+    if not 0 < d <= _BWD_MAX_D or _bwd_smem_bytes(d, s) > _MAX_SMEM_BYTES:
+        raise ValueError(f"kernel_mvm_bwd_cuda: d={d}, s={s} outside the "
+                         "kernel's range")
+    if max(n, m, s) >= 2**31:
+        raise ValueError("kernel_mvm_bwd_cuda: dimension exceeds int32")
+    if n == 0 or s == 0:
+        return torch.zeros((n, d), dtype=torch.float32, device=u.device)
+    du = torch.empty((n, d), dtype=torch.float32, device=u.device)
+    _launch(BWD_KERNEL_NAME, _library().repro_kernel_mvm_bwd, u.device,
+            u.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(),
+            du.data_ptr(), n, m, d, s, KIND_CODES[kind])
+    return du
 
 
 def kernel_mvm_unit(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -217,3 +312,11 @@ def kernel_mvm_unit(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     if u.device.type == "cpu":
         return kernel_mvm_plain(u, w, v, kind=kind)
     return kernel_mvm_cuda(u, w, v, kind=kind)
+
+
+def kernel_mvm_bwd_unit(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                        v: torch.Tensor, kind: str = "matern32") -> torch.Tensor:
+    """Cotangent of ``u``: the CUDA kernel for CUDA tensors, plain for CPU."""
+    if u.device.type == "cpu":
+        return kernel_mvm_bwd_plain(u, w, g, v, kind=kind)
+    return kernel_mvm_bwd_cuda(u, w, g, v, kind=kind)

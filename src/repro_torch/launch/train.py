@@ -1,0 +1,123 @@
+"""CLI training driver of the port: the GP path of ``repro.launch.train``.
+
+    python -m repro_torch.launch.train --arch gp-iterative --dataset pol \\
+        --pathwise --warm-start --steps 20 --eval-every 10
+
+Fits the dataset with CG (rank ``--precond-rank`` pivoted-Cholesky
+preconditioner), the standard or pathwise estimator, warm-started or not,
+and Adam, with evaluation every ``--eval-every`` steps and checkpoints in
+``--ckpt-dir``; prints the reference's JSON summary (and writes it to
+``--out``). ``--device`` defaults to ``cuda`` and fails without a card;
+``--device cpu`` runs the plain PyTorch versions. ``--max-n 0`` trains on
+the full dataset. The AP and SGD solvers and the LM architectures are not
+ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from repro_torch.core.driver import FitResult, fit
+from repro_torch.core.outer import OuterConfig
+from repro_torch.data.synthetic import load_dataset
+from repro_torch.solvers import SolverConfig
+from repro_torch.train.adam import AdamConfig
+
+
+def build_config(args) -> OuterConfig:
+    """The `OuterConfig` the CLI flags describe (as the reference's)."""
+    if args.solver in ("ap", "sgd"):
+        raise NotImplementedError(
+            f"--solver {args.solver} is not ported yet (ROADMAP Queue 1, "
+            "AP/SGD slice); use --solver cg")
+    solver = SolverConfig(
+        name=args.solver, tolerance=args.tolerance,
+        max_epochs=args.budget if args.budget > 0 else 1e9,
+        precond_rank=args.precond_rank)
+    return OuterConfig(
+        estimator="pathwise" if args.pathwise else "standard",
+        warm_start=args.warm_start, num_probes=args.probes, solver=solver,
+        adam=AdamConfig(learning_rate=args.lr), num_steps=args.steps,
+        backend=args.backend, bm=args.tile, bn=args.tile)
+
+
+def run_gp(args) -> tuple[dict, FitResult]:
+    """Load the dataset, fit it, and return (the JSON summary, the fit)."""
+    cfg = build_config(args)
+    ds = load_dataset(args.dataset, max_n=args.max_n, device=args.device)
+    gen = torch.Generator(device=ds.x_train.device).manual_seed(args.seed)
+    res = fit(ds.x_train, ds.y_train, cfg, generator=gen,
+              x_test=ds.x_test, y_test=ds.y_test, eval_every=args.eval_every,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+              verbose=True)
+    h = res.history
+    out = {
+        "dataset": ds.name,
+        "solver": args.solver,
+        "pathwise": args.pathwise,
+        "warm_start": args.warm_start,
+        "total_time_s": res.wall_time_s,
+        "total_epochs": float(h["epochs"].sum()),
+        "final_res_y": float(h["res_y"][-1]),
+        "final_res_z": float(h["res_z"][-1]),
+        "eval_rmse": h["eval_rmse"].tolist(),
+        "eval_llh": h["eval_llh"].tolist(),
+    }
+    print(json.dumps(out, indent=2), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=2)
+    return out, res
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's flags and defaults, plus ``--device``."""
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="gp-iterative")
+    ap.add_argument("--dataset", default="pol")
+    ap.add_argument("--max-n", type=int, default=4000,
+                    help="row cap on the dataset (0 = the full dataset)")
+    ap.add_argument("--solver", default="cg", choices=["cg", "ap", "sgd"])
+    ap.add_argument("--pathwise", action="store_true")
+    ap.add_argument("--warm-start", action="store_true")
+    ap.add_argument("--probes", type=int, default=64)
+    ap.add_argument("--budget", type=float, default=0.0,
+                    help="solver epochs per outer step; 0 = to tolerance")
+    ap.add_argument("--tolerance", type=float, default=0.01)
+    ap.add_argument("--precond-rank", type=int, default=100)
+    ap.add_argument("--block-size", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=500)
+    ap.add_argument("--sgd-lr", type=float, default=0.0)
+    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--eval-every", type=int, default=25)
+    ap.add_argument("--backend", default="cuda",
+                    choices=["dense", "streamed", "cuda"],
+                    help="HOperator backend: cuda (the tile kernels), "
+                         "streamed or dense")
+    ap.add_argument("--tile", type=int, default=1024)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    """CLI entry: parse flags and run the GP path."""
+    args = build_parser().parse_args(argv)
+    if args.arch != "gp-iterative":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the LM substrate is not ported yet "
+            "(ROADMAP Queue 1, LM substrate); use --arch gp-iterative")
+    run_gp(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
 """Matrix-free access to H_theta = K(x, x) + sigma^2 I.
 
-Port of ``repro.solvers.operator`` (full MVM only). Backends:
+Port of ``repro.solvers.operator``: the full MVM, the kernel row and
+diagonal that pivoted Cholesky reads, and the dense matrix for tests.
+Backends of the full MVM:
 
   * ``dense``    — materialise K (reference; small n only).
   * ``streamed`` — :func:`kernel_mvm_tiled`, the plain two-level tiling.
@@ -10,7 +12,7 @@ Port of ``repro.solvers.operator`` (full MVM only). Backends:
                    tensors it runs the kernel's plain version).
 
 The block methods (``row_block_mvm``, ``col_block_mvm``, ``block``,
-``kernel_row``, ``all_block_cholesky``) arrive with the AP/SGD slice.
+``all_block_cholesky``) arrive with the AP/SGD slice.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.gp.hyperparams import HyperParams, resolve_kind
 from repro_torch.gp.kernels_math import (
     kernel_matrix,
     profile_from_r2,
+    regularised_kernel_matrix,
     scaled_sqdist,
 )
 
@@ -111,3 +114,25 @@ class HOperator:
             v = v[:, None]
         out = self._kernel_mvm(v) + self.noise_var * v
         return out[:, 0] if squeeze else out
+
+    def kernel_row(self, i: torch.Tensor) -> torch.Tensor:
+        """K[i, :] (WITHOUT noise) -> (n,) for a 0-d index tensor ``i``.
+
+        The row is read with ``index_select``, so a device index never
+        syncs the host; used by pivoted Cholesky. ``r2`` is taken by direct
+        differences, so the pivot's own entry is exactly ``s^2``: the
+        expanded form leaves ~1e-6 there in fp32, which Matérn-1/2's square
+        root turns into an error of ~1e-3 in the pivot column.
+        """
+        u = self.x / self.params.lengthscales
+        diff = u - u.index_select(0, i.reshape(1))
+        profile = profile_from_r2(self.kernel_kind)
+        return profile(torch.sum(diff * diff, dim=-1), self.params.signal)
+
+    def kernel_diag(self) -> torch.Tensor:
+        """diag(K) (WITHOUT noise) -> (n,); constant s^2 for stationary k."""
+        return (self.params.signal ** 2).expand(self.n).to(self.x.dtype).clone()
+
+    def dense(self) -> torch.Tensor:
+        """Materialise H = K + sigma^2 I as an (n, n) tensor (tests only)."""
+        return regularised_kernel_matrix(self.x, self.params, kind=self.kind)

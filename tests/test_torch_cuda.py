@@ -1,0 +1,101 @@
+"""Tests of the port's kernels that need a CUDA card (marked ``cuda``; they
+skip without one). This file imports no JAX, so it runs on a machine with a
+card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The backward kernel is held to its plain version and the hyper-gradient
+through the kernel pair on the card to the same function on the CPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.gradients import mll_grad_estimate  # noqa: E402
+from repro_torch.gp.hyperparams import HyperParams  # noqa: E402
+from repro_torch.kernels import tiled  # noqa: E402
+
+KINDS = ("rbf", "matern12", "matern32", "matern52")
+
+
+def _draws(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _params(d, seed, kernel):
+    rng = np.random.default_rng(seed)
+    leaves = (rng.uniform(-0.3, 0.8, size=d).astype(np.float32),
+              np.float32(0.6), np.float32(-0.4))
+    return HyperParams(*map(torch.tensor, leaves), kernel=kernel)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_bwd_kernel_matches_plain(kind):
+    """On a card: the backward kernel vs its plain version in float64 on a
+    ragged shape (n, m, s and d not multiples of the tiles), at 2e-5 of the
+    largest output (fp32 sums of m * (s + d) products in another order)."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u, w = (torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((300, 7), (277, 7)))
+    g, v = (torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((300, 9), (277, 9)))
+    got = tiled.kernel_mvm_bwd_cuda(u, w, g, v, kind).double()
+    ref = tiled.kernel_mvm_bwd_plain(u.double(), w.double(), g.double(),
+                                     v.double(), kind)
+    assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["pathwise", "standard"])
+def test_cuda_mll_grad_matches_cpu(estimator):
+    """On a card: the hyper-gradient through the kernel pair vs the same
+    function on the CPU (plain versions), per leaf at 1e-4 of the largest
+    entry."""
+    _cuda_or_skip()
+    x, y, v, tg = _draws(13, (500, 4), (500,), (500, 9), (500, 9))
+    tp = _params(4, 14, "matern32")
+    cpu, _ = mll_grad_estimate(*map(torch.tensor, (x, y)), tp,
+                               *map(torch.tensor, (v, tg)), estimator,
+                               backend="cuda")
+    dev = [torch.tensor(a, device="cuda") for a in (x, y, v, tg)]
+    card, _ = mll_grad_estimate(
+        dev[0], dev[1], tp.with_leaves([p.cuda() for p in tp.leaves]),
+        dev[2], dev[3], estimator, backend="cuda")
+    scale = max(c.abs().max().item() for c in cpu.leaves)
+    for a, b in zip(card.leaves, cpu.leaves):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_unit_mvm_grads_match_cpu(kind):
+    """On a card: gradients of sum(K(x1, x2) v ** 2) for x1, x2, v and the
+    hyperparameters through the ``autograd.Function`` (forward kernel, two
+    backward kernels, forward kernel with roles swapped for dv) vs the same
+    on the CPU, at 1e-4 of each gradient's largest entry. (A squared loss
+    keeps the signal leaf a sum of positive terms; under sin() it is a sum
+    of 2,700 terms of both signs whose fp32 rounding alone reaches ~1e-4.)"""
+    _cuda_or_skip()
+    from repro_torch.kernels.ops import kernel_mvm
+
+    x1, x2, v = _draws(15, (300, 5), (277, 5), (277, 9))
+    tp = _params(5, 16, kind)
+
+    def grads(device):
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x1, x2, v)]
+        leaves = [p.to(device).requires_grad_(True) for p in tp.leaves[:2]]
+        p = tp.with_leaves(leaves + [tp.raw_noise.to(device)])
+        loss = torch.sum(kernel_mvm(*args, p) ** 2)
+        return [g.cpu() for g in torch.autograd.grad(loss, args + leaves)]
+
+    for a, b in zip(grads("cuda"), grads("cpu")):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()

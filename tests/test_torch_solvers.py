@@ -23,6 +23,7 @@ from repro_torch.core.estimators import ProbeState, build_system_targets  # noqa
 from repro_torch.core.gradients import mll_grad_estimate  # noqa: E402
 from repro_torch.gp import hyperparams as thp  # noqa: E402
 from repro_torch.gp.rff import RFFState, prior_sample_at  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.solvers import HOperator, SolverConfig, solve  # noqa: E402
 from repro_torch.solvers.cg import solve_cg  # noqa: E402
 from repro_torch.train import adam as tadam  # noqa: E402
@@ -165,13 +166,17 @@ def test_cg_to_tolerance_matches_reference():
 
 
 def test_unported_solver_paths_raise():
+    """AP and SGD wait for their slice: the solver dispatch and the train
+    CLI's ``--solver sgd`` both raise and name it. (Rank-100 pivoted
+    Cholesky is ported; tests/test_torch_train.py holds it to the
+    reference.)"""
     x, b, _ = _problem(n=16)
     _, tp = _params(3)
     op = HOperator(torch.tensor(x), tp)
-    with pytest.raises(NotImplementedError, match="pivoted-Cholesky"):
-        solve(op, torch.tensor(b), None, SolverConfig(precond_rank=100))
     with pytest.raises(NotImplementedError, match="AP/SGD"):
         solve(op, torch.tensor(b), None, SolverConfig(name="ap"))
+    with pytest.raises(NotImplementedError, match="AP/SGD slice"):
+        ttrain.main(["--device", "cpu", "--solver", "sgd", "--max-n", "50"])
 
 
 @pytest.mark.parametrize("estimator", ["pathwise", "standard"])

@@ -9,8 +9,13 @@ Phases, each printing JSON lines:
 2. kernels: every kernel against its plain PyTorch version, for all four
    registered profiles, with times (CUDA events), the plain version's time,
    one PyTorch library yardstick, and the least time the card could take
-   (``bound_ms``). Forward: at the serve path's shapes (CG: 12150 x 12150,
-   d=26, s=65; prediction: 64 x 12150) and one ragged shape. Backward: at
+   (``bound_ms``). Forward: at the paths' shapes (CG: 12150 x 12150,
+   d=26, s=65; prediction: 64 x 12150; the engine's 16-row bucket; a
+   500-row SGD slab), each with its column split count, the bound as the
+   kernel splits the work between CUDA cores and tensor cores and the
+   all-fp32 bound of the earlier design, and two launches bitwise equal;
+   and one ragged shape, checked only. The build fails the smoke if any
+   instantiation of the forward kernel spills registers. Backward: at
    the CG shape with g != v (the standard estimator's roles) and with
    u = w, g = v (pathwise), and at the ragged shape. Then the gradient of
    ``mll_grad_estimate`` through the kernel pair against autograd through
@@ -53,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances. fp32 kernel vs fp32 plain: the two sum in different orders,
@@ -76,7 +82,14 @@ TOL_TRAIN_VS_CPU = 1e-4
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 CG_SHAPE = (12150, 12150, 26, 65)
 PREDICT_SHAPE = (64, 12150, 26, 65)
+BUCKET16_SHAPE = (16, 12150, 26, 65)  # the engine's smallest bucket
+SGD_SLAB_SHAPE = (500, 12150, 26, 65)  # an SGD batch's row slab
 RAGGED_SHAPE = (1001, 777, 7, 9)
+# Forward kernel: (label, shape, timed).
+FWD_SHAPES = (("cg", CG_SHAPE, True), ("predict", PREDICT_SHAPE, True),
+              ("bucket16", BUCKET16_SHAPE, True),
+              ("sgd_slab", SGD_SLAB_SHAPE, True),
+              ("ragged", RAGGED_SHAPE, False))
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 
 
@@ -115,15 +128,27 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def bound(n: int, m: int, d: int, s: int) -> dict:
-    """Least time for one call: 2nm(d+s) flops + nm profile evaluations
-    (one op each) at the fp32 CUDA-core peak, vs each input read once and
-    the output written once at the HBM rate."""
-    ops = 2 * n * m * (d + s) + n * m
+    """Least time for one forward call, as the kernel splits the work:
+    2nmd + nm operations (r2 and the profile) at the fp32 CUDA-core peak,
+    3 * 2nms (kappa @ V in 3xTF32) at the TF32 tensor-core peak, and each
+    input read once and the output written once at the HBM rate; the
+    largest of the three. ``bound_fp32_ms`` is the all-fp32 bound of the
+    earlier design (2nm(d+s) + nm operations on the CUDA cores), kept so
+    shares stay comparable."""
+    cuda_ops = 2 * n * m * d + n * m
+    tc_ops = 3 * 2 * n * m * s
     nbytes = 4 * (n * d + m * d + m * s + n * s)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return {"ops": ops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    times = {"cuda_cores": cuda_ops / PEAK_FP32_FLOPS * 1e3,
+             "tensor_cores": tc_ops / PEAK_TF32_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_HBM_BYTES * 1e3}
+    unit = max(times, key=times.get)
+    fp32_ops = 2 * n * m * (d + s) + n * m
+    return {"ops_cuda_cores": cuda_ops, "ops_tensor_cores": tc_ops,
+            "bytes": nbytes, "bound_ms": times[unit],
+            "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit,
+            "bound_fp32_ms": max(fp32_ops / PEAK_FP32_FLOPS * 1e3,
+                                 times["bytes"])}
 
 
 def bound_bwd(n: int, m: int, d: int, s: int) -> dict:
@@ -140,11 +165,13 @@ def bound_bwd(n: int, m: int, d: int, s: int) -> dict:
 
 
 def phase_kernels(torch, tiled, registry) -> dict:
-    """Kernel vs plain for every kind and shape; times at the path shapes."""
+    """Kernel vs plain for every kind and shape; times, split counts and
+    bounds at the path shapes; two launches on the split path bitwise
+    equal."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results, main_entry = [], None
-    for label, (n, m, d, s) in (("cg", CG_SHAPE), ("predict", PREDICT_SHAPE),
-                                ("ragged", RAGGED_SHAPE)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results, main_entry, by_shape = [], None, {}
+    for label, (n, m, d, s), timed in FWD_SHAPES:
         if label == "cg":
             u = torch.randn((n, d), generator=gen, device="cuda")
             w = u  # H @ V: coincident points on the diagonal
@@ -152,8 +179,10 @@ def phase_kernels(torch, tiled, registry) -> dict:
             u = torch.randn((n, d), generator=gen, device="cuda")
             w = torch.randn((m, d), generator=gen, device="cuda")
         v = torch.randn((m, s), generator=gen, device="cuda")
+        splits = tiled.split_plan(n, m, s, sms)
         for kind in KINDS:
             out = tiled.kernel_mvm_cuda(u, w, v, kind)
+            again = tiled.kernel_mvm_cuda(u, w, v, kind)
             torch.cuda.synchronize()
             if kind == "matern12":
                 ref = tiled.kernel_mvm_plain(u.double(), w.double(), v.double(),
@@ -164,13 +193,16 @@ def phase_kernels(torch, tiled, registry) -> dict:
                 tol = TOL_VS_PLAIN
             err = (out.double() - ref.double()).abs().max().item()
             scale = ref.abs().max().item()
+            bitwise = bool(torch.equal(out, again))
             rec = {"phase": "kernels", "shape": label, "n": n, "m": m, "d": d,
-                   "s": s, "kind": kind,
+                   "s": s, "kind": kind, "splits": splits,
                    "reference": "plain_f64" if kind == "matern12" else "plain_f32",
                    "max_abs_err": err, "max_abs_out": scale,
                    "rel_err": err / scale, "tol_rel": tol,
-                   "ok": bool(math.isfinite(err) and err <= tol * scale)}
-            if label in ("cg", "predict"):
+                   "two_launches_bitwise_equal": bitwise,
+                   "ok": bool(math.isfinite(err) and err <= tol * scale
+                              and bitwise)}
+            if timed:
                 kappa = registry.get_kernel(kind).kappa_from_r2
 
                 def library(u=u, w=w, v=v, kappa=kappa):
@@ -183,10 +215,17 @@ def phase_kernels(torch, tiled, registry) -> dict:
                     lambda: tiled.kernel_mvm_plain(u, w, v, kind), 3)
                 rec["library_ms"] = time_ms(library, 5)
                 rec.update(bound(n, m, d, s))
+                rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+                rec["share_of_bound_fp32"] = rec["bound_fp32_ms"] / rec["ms"]
+                if kind == "matern32":
+                    by_shape[label] = {k: rec[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_unit", "bound_fp32_ms", "splits")}
             emit(rec)
             results.append(rec)
             if label == "cg" and kind == "matern32":
                 main_entry = rec
+    main_entry["by_shape"] = by_shape
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel checks failed: {bad}")
@@ -300,6 +339,7 @@ def phase_serve(torch, tiled) -> tuple:
     run = serve_gp(args)
     report, engine = run.report, run.engine
     launches = tiled.launch_counts()
+    second_passes = tiled.SECOND_PASSES[tiled.KERNEL_NAME]
     peak = torch.cuda.max_memory_allocated()
 
     steps = len(report["steps"])
@@ -333,6 +373,7 @@ def phase_serve(torch, tiled) -> tuple:
         "cg_mvms": report["cg_mvms"],
         "engine_dispatches": report["engine_dispatches"],
         "kernel_launches": got, "expected_launches": expected,
+        "fwd_second_pass_calls": second_passes,
         "bwd_kernel_launches": got_bwd, "expected_bwd_launches": expected_bwd,
         "host_syncs": sum(st["host_syncs"] for st in report["steps"]),
         "peak_mem_bytes": peak,
@@ -360,7 +401,7 @@ def phase_serve(torch, tiled) -> tuple:
         problems.append(f"served predictions disagree with CPU: {serve_err}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return summary, launches, run
+    return summary, dict(launches, second_passes=second_passes), run
 
 
 def _train_args(**over) -> SimpleNamespace:
@@ -386,7 +427,8 @@ def phase_train(torch, tiled) -> tuple:
         "b_defaults_standard_cold": _train_args(
             max_n=0, steps=3, eval_every=3, device="cuda"),
     }
-    problems, totals, fits = [], {k: 0 for k in tiled.LAUNCHES}, {}
+    problems, fits = [], {}
+    totals = dict.fromkeys([*tiled.LAUNCHES, "second_passes"], 0)
     for label, args in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -394,6 +436,7 @@ def phase_train(torch, tiled) -> tuple:
         out, res = run_gp(args)
         torch.cuda.synchronize()
         launches = tiled.launch_counts()
+        second_passes = tiled.SECOND_PASSES[tiled.KERNEL_NAME]
         peak = torch.cuda.max_memory_allocated()
         h = res.history
         steps = len(h["iters"])
@@ -403,8 +446,9 @@ def phase_train(torch, tiled) -> tuple:
             + int(h["eval_mvms"].sum()) + evals,
             tiled.BWD_KERNEL_NAME: 2 * steps,
         }
-        for k in totals:
+        for k in tiled.LAUNCHES:
             totals[k] += launches[k]
+        totals["second_passes"] += second_passes
         ckpts = sorted(p.name for p in CKPT_DIR.glob("step_*.npz")) \
             if args.ckpt_dir else []
         rec = {"phase": "train", "run": label, "estimator":
@@ -422,6 +466,7 @@ def phase_train(torch, tiled) -> tuple:
                "final_res_z": out["final_res_z"],
                "total_time_s": out["total_time_s"],
                "launches": launches, "expected_launches": expected,
+               "fwd_second_pass_calls": second_passes,
                "peak_mem_bytes": peak, "checkpoints": ckpts}
         emit(rec)
         fits[label] = (args, res)
@@ -541,7 +586,8 @@ def phase_profile(torch, args, res) -> dict:
     return rec
 
 
-def _kernel_entry(name, source, replaces, launches, measured) -> dict:
+def _kernel_entry(name, source, replaces, launches, measured,
+                  **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches}
     if measured is not None:
@@ -549,7 +595,25 @@ def _kernel_entry(name, source, replaces, launches, measured) -> dict:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
         entry["rel_err"] = measured["rel_err"]
+        entry.update({k: measured[k] for k in (
+            "bound_unit", "bound_fp32_ms", "splits", "by_shape")
+            if k in measured})
+    entry.update(extra)
     return entry
+
+
+def ptxas_spills(report: str) -> dict:
+    """Bytes of spill stores per compiled kernel, from nvcc's -Xptxas -v
+    report."""
+    spills, current = {}, None
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            current = line.split("Function properties for ")[1].strip()
+        elif current and "bytes spill stores" in line:
+            spills[current] = int(line.split(" bytes spill stores")[0]
+                                  .rsplit(",", 1)[1])
+            current = None
+    return spills
 
 
 def main() -> int:
@@ -575,14 +639,23 @@ def main() -> int:
                    if "registers" in line
                    for tok in [line.split("Used ")[1].split(" ")[0]]}) \
         if ptxas.exists() else []
-    spills = ptxas.read_text().count(" 0 bytes spill stores") if ptxas.exists() else 0
+    spills = ptxas_spills(ptxas.read_text()) if ptxas.exists() else {}
+    fwd_spills = {k: b for k, b in spills.items() if tiled.KERNEL_NAME in k}
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "library": str(lib),
-          "registers_per_thread": regs, "instantiations_without_spills": spills})
+          "registers_per_thread": regs, "instantiations": len(spills),
+          "instantiations_without_spills": sum(b == 0 for b in spills.values()),
+          "fwd_instantiations": len(fwd_spills),
+          "fwd_instantiations_with_spills": sum(b > 0 for b in
+                                                fwd_spills.values())})
 
     failures = []
+    if not fwd_spills or any(fwd_spills.values()):
+        print(f"chip_smoke: forward kernel spills: {fwd_spills}",
+              file=sys.stderr, flush=True)
+        failures.append("device")
     fwd_entry = bwd_entry = None
     path_launches = []
     try:
@@ -616,7 +689,8 @@ def main() -> int:
     entries = [
         _kernel_entry(tiled.KERNEL_NAME, "src/repro_torch/csrc/kernel_mvm.cu",
                       "src/repro/kernels/tiled.py:98",
-                      total(tiled.KERNEL_NAME), fwd_entry),
+                      total(tiled.KERNEL_NAME), fwd_entry,
+                      second_pass_calls=total("second_passes")),
         _kernel_entry(tiled.BWD_KERNEL_NAME,
                       "src/repro_torch/csrc/kernel_mvm_bwd.cu",
                       "src/repro/kernels/tiled.py:131",

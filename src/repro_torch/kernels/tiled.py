@@ -12,10 +12,16 @@ and ``csrc/kernel_mvm_bwd.cu``.
 
 * :func:`kernel_mvm_cuda` and :func:`kernel_mvm_bwd_cuda` launch the
   hand-written kernels on CUDA tensors (and raise on anything else). They
-  count their launches in :data:`LAUNCHES`.
+  count their launches in :data:`LAUNCHES`; the forward wrapper counts the
+  calls that took its second pass (the split sum) in :data:`SECOND_PASSES`.
+* :func:`split_plan` picks how many column splits the forward kernel runs,
+  from the shapes and the card's SM count.
 * :func:`kernel_mvm_plain` and :func:`kernel_mvm_bwd_plain` are the same
   functions in plain tiled PyTorch, with ``r2`` by direct differences as in
   the kernels.
+* :func:`kernel_mvm_mirror` repeats the forward kernel's arithmetic on the
+  CPU for the tests: its column tiles and splits, the split sum in split
+  order, and its 3xTF32 products (:func:`tf32_round`).
 * :func:`kernel_mvm_unit` and :func:`kernel_mvm_bwd_unit` pick between them
   by the device of their inputs: the plain version for CPU tensors, the
   kernel for CUDA tensors. There is no fallback from one to the other.
@@ -34,6 +40,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional
 
@@ -52,13 +59,18 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel wrapper since the last reset (chip_smoke.py reads
-# them to show the main path went through the kernels).
+# them to show the main path went through the kernels), and the forward
+# calls among them that ran the second pass (the sum over column splits).
 LAUNCHES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
+SECOND_PASSES = {KERNEL_NAME: 0}
 
-# Shared-memory geometry of csrc/kernel_mvm.cu (BM = BN = 64, KS = BN + 16,
-# SC = 16 * TS with TS <= 8) and csrc/kernel_mvm_bwd.cu (odd row strides,
-# d <= 96), for rejecting shapes before the launch.
-_BM, _BN, _KS, _MAX_TS = 64, 64, 80, 8
+# Geometry of csrc/kernel_mvm.cu: 128-row blocks, 128-row column tiles,
+# s-chunks of 8 * NT columns with NT <= 9, row strides padded as the kernel
+# pads them; for planning splits and rejecting shapes before the launch.
+FWD_BM, FWD_BN, FWD_MAX_NT = 128, 128, 9
+# Shared-memory geometry of csrc/kernel_mvm_bwd.cu (BM = BN = 64, KS = BN +
+# 16, odd row strides, d <= 96).
+_BM, _BN, _KS = 64, 64, 80
 _BWD_MAX_D = 96
 _MAX_SMEM_BYTES = 232_448
 
@@ -67,9 +79,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set every kernel's launch count (and second-pass count) to 0."""
+    for counts in (LAUNCHES, SECOND_PASSES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
@@ -133,6 +146,91 @@ def kernel_mvm_bwd_plain(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return torch.cat(rows)
 
 
+# -- the forward kernel's plan, and a CPU mirror of its arithmetic ----------
+
+
+def _fwd_nt(s: int) -> int:
+    """n8 tiles of s per block (the kernel's ``num_nt``)."""
+    return min(FWD_MAX_NT, -(-s // 8))
+
+
+def _fwd_grid(n: int, m: int, s: int) -> tuple:
+    """(row tiles, s-chunks, column tiles) of the forward kernel."""
+    return (-(-n // FWD_BM), -(-s // (8 * _fwd_nt(s))), -(-m // FWD_BN))
+
+
+@lru_cache(maxsize=4096)
+def split_plan(n: int, m: int, s: int, num_sms: int) -> int:
+    """Number of column splits for the forward kernel at these shapes.
+
+    One split when there is at most one column tile, or when the row tiles
+    and s-chunks alone make two waves of blocks on ``num_sms`` SMs.
+    Otherwise the count, up to four waves of blocks, that minimises
+    ``ceil(blocks / num_sms) * ceil(tiles / splits)`` (the column tiles the
+    busiest SM walks), the smallest such count on ties.
+    """
+    rows, chunks, tiles = _fwd_grid(n, m, s)
+    base = rows * chunks
+    if tiles <= 1 or base >= 2 * num_sms:
+        return 1
+    most = max(1, min(tiles, 65535, (4 * num_sms) // base))
+    return min(range(1, most + 1),
+               key=lambda k: (-(-base * k // num_sms)) * -(-tiles // k))
+
+
+def split_tile_range(z: int, splits: int, tiles: int) -> tuple:
+    """Column tiles [lo, hi) that split ``z`` walks (the kernel's formula)."""
+    return z * tiles // splits, (z + 1) * tiles // splits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 explicit mantissa bits), round to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``; returned as fp32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores form it from TF32 operands: each product of
+    two TF32 values is exact in fp32, and the sums are fp32. ``passes`` 3 is
+    the split big*small + small*big + big*big; 1 is big*big alone."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def kernel_mvm_mirror(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                      kind: str = "matern32", splits: Optional[int] = None,
+                      passes: int = 3) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch, for the tests.
+
+    fp32 CPU tensors. Column tiles of 128 rows of (w, v); ``r2`` by direct
+    differences and the registry profile in fp32 (the kernel evaluates the
+    profile on the special-function units, within a few ulps); ``kappa @
+    V`` per tile with TF32 operands (:func:`_tf32_product`, ``passes`` 3 or
+    1); each split's sum over its own tiles, and the splits summed in split
+    order. ``splits`` defaults to :func:`split_plan` on an H100's 132 SMs.
+    """
+    kappa = get_kernel(kind).kappa_from_r2
+    n, m, s = u.shape[0], w.shape[0], v.shape[1]
+    tiles = _fwd_grid(n, m, s)[2]
+    if splits is None:
+        splits = split_plan(n, m, s, 132)
+    total = None
+    for z in range(splits):
+        lo, hi = split_tile_range(z, splits, tiles)
+        part = torch.zeros((n, s), dtype=torch.float32)
+        for jt in range(lo, hi):
+            j = slice(jt * FWD_BN, (jt + 1) * FWD_BN)
+            diff = u[:, None, :] - w[None, j, :]
+            part = part + _tf32_product(kappa(torch.sum(diff * diff, dim=-1)),
+                                        v[j], passes)
+        total = part if total is None else total + part
+    return total
+
+
 # -- build and bind -----------------------------------------------------------
 
 
@@ -192,7 +290,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
             fwd = lib.repro_kernel_mvm_fwd
-            fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             bwd = lib.repro_kernel_mvm_bwd
@@ -209,8 +307,20 @@ def _library() -> ctypes.CDLL:
 
 
 def _smem_bytes(d: int, s: int) -> int:
-    ts = min(_MAX_TS, -(-s // 16))
-    return 4 * (_BM * d + d * _BN + _BN * 16 * ts + _BM * _KS)
+    """Least dynamic shared memory of the forward kernel: the threads'
+    running sums, u's row tile and one (w, v) column-tile buffer, at the
+    kernel's padded row strides. (The kernel takes a second buffer where it
+    fits, d <= 52.)"""
+    nt = _fwd_nt(s)
+    dp = -(-d // 4) * 4
+    dp += 4 if dp % 8 == 0 else 0
+    sp = 8 * (nt | 1)
+    return 4 * (2 * nt * 4 * 2 * FWD_BM + FWD_BM * dp + FWD_BN * (dp + sp))
+
+
+@lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _bwd_smem_bytes(d: int, s: int) -> int:
@@ -253,9 +363,12 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                     kind: str = "matern32") -> torch.Tensor:
     """Launch the forward tile kernel on CUDA tensors; (n, s) fp32 result.
 
-    Raises on inputs that require grad (forward only), on tensors that are
-    not fp32, contiguous, 2-D CUDA tensors of one device, on mismatched
-    shapes and on an unknown kind.
+    The column range is split as :func:`split_plan` says for the card's SM
+    count; with more than one split the partial sums go to a workspace and
+    the kernel's second pass adds them in split order. Raises on inputs that
+    require grad (forward only), on tensors that are not fp32, contiguous,
+    2-D CUDA tensors of one device, on mismatched shapes and on an unknown
+    kind.
     """
     _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
     (n, d), (m, dw), (mv, s) = u.shape, w.shape, v.shape
@@ -271,9 +384,15 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     out = torch.empty((n, s), dtype=torch.float32, device=u.device)
     if n == 0 or s == 0:
         return out
+    splits = split_plan(n, m, s, _num_sms(u.device.index))
+    workspace = (torch.empty((splits, n, s), dtype=torch.float32,
+                             device=u.device) if splits > 1 else None)
     _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
             u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, m, d, s, KIND_CODES[kind])
+            workspace.data_ptr() if workspace is not None else None,
+            n, m, d, s, KIND_CODES[kind], splits)
+    if splits > 1:
+        SECOND_PASSES[KERNEL_NAME] += 1
     return out
 
 

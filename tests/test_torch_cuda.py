@@ -4,8 +4,9 @@ card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The backward kernel is held to its plain version and the hyper-gradient
-through the kernel pair on the card to the same function on the CPU."""
+The forward and backward kernels are held to their plain versions, and the
+hyper-gradient through the kernel pair on the card to the same function on
+the CPU."""
 import numpy as np
 import pytest
 
@@ -33,6 +34,67 @@ def _params(d, seed, kernel):
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+# Forward kernel shapes (n, m, d, s): short and long row counts against
+# the full pol column range and a ragged one, m < 64 and m = 0, one column,
+# the path's 65 and two s-chunks (129), d = 5 and 26, and d = 90 (one tile
+# buffer: two do not fit in shared memory beyond d = 52).
+FWD_SHAPES = [
+    (1, 12150, 26, 65), (16, 12150, 26, 65), (64, 12150, 26, 65),
+    (300, 12150, 26, 65), (1, 277, 26, 65), (16, 277, 26, 65),
+    (64, 277, 26, 65), (300, 277, 26, 65), (300, 50, 26, 65),
+    (300, 0, 26, 65), (64, 277, 26, 1), (300, 277, 26, 129),
+    (300, 277, 5, 65), (300, 277, 90, 65),
+]
+
+
+def _fwd_inputs(n, m, d, s, seed=0):
+    """Scaled so that the kernel's values spread over (0, 1] at d = 26."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = 0.3 * torch.randn((n, d), generator=gen, device="cuda")
+    w = 0.3 * torch.randn((m, d), generator=gen, device="cuda")
+    v = torch.randn((m, s), generator=gen, device="cuda")
+    return u, w, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FWD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in FWD_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_fwd_kernel_matches_plain(kind, shape):
+    """On a card: the forward kernel vs its plain version, fp32 at 1e-5 of
+    the largest output (the two sum in different orders, the kernel's
+    products in 3xTF32), Matérn-1/2 against float64 at 1e-4."""
+    _cuda_or_skip()
+    u, w, v = _fwd_inputs(*shape)
+    got = tiled.kernel_mvm_cuda(u, w, v, kind).double()
+    if kind == "matern12":
+        ref, tol = tiled.kernel_mvm_plain(u.double(), w.double(), v.double(),
+                                          kind), 1e-4
+    else:
+        ref, tol = tiled.kernel_mvm_plain(u, w, v, kind).double(), 1e-5
+    assert got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_split_path_is_deterministic():
+    """On a card: at the prediction shape the column range is split and the
+    partial sums go through the second pass; two launches give bitwise equal
+    outputs, and each call counts one launch and one second pass."""
+    _cuda_or_skip()
+    u, w, v = _fwd_inputs(64, 12150, 26, 65, seed=1)
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    assert tiled.split_plan(64, 12150, 65, sms) > 1
+    tiled.reset_launch_counts()
+    first = tiled.kernel_mvm_cuda(u, w, v, "matern32")
+    second = tiled.kernel_mvm_cuda(u, w, v, "matern32")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert tiled.LAUNCHES[tiled.KERNEL_NAME] == 2
+    assert tiled.SECOND_PASSES[tiled.KERNEL_NAME] == 2
 
 
 @pytest.mark.cuda

@@ -1,0 +1,165 @@
+"""Where the forward CUDA kernel's time goes: variants with one part cut.
+
+    python3 tools/torch_kernel_ablation.py        # on a machine with a card
+
+Builds ``src/repro_torch/csrc/kernel_mvm.cu`` several times (Matérn-3/2 and
+the s-chunk of s = 65 only, so each build takes seconds), each variant with
+one part of the kernel's work cut, and times them on the card in turns, two
+rounds, at the CG shape (12150 x 12150, d = 26, s = 65), the prediction
+shape (64 x 12150) and the SGD slab (500 x 12150), with the split count the
+port plans. Only ``full`` computes the right answer (its error against the
+plain version is printed); the others exist to be timed:
+
+* ``no_copy``: both tile buffers are filled once and never copied again;
+* ``one_buffer``: the path for large d: one tile buffer, each tile copied
+  after the previous one's compute;
+* ``r2_one_chunk``: r2 over the first 4 coordinates only;
+* ``one_product``: big*big alone, without the two 3xTF32 correction
+  products.
+
+Prints one JSON line per variant and round, and the card's name and power
+limit; the lines also go to ``build/torch_kernel_ablation.jsonl``.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPES = ((12150, 12150, 26, 65), (64, 12150, 26, 65), (500, 12150, 26, 65))
+MATERN32 = 2
+
+
+def _sub(text: str, old: str, new: str) -> str:
+    if old not in text:
+        raise ValueError(f"variant anchor not found: {old[:60]!r}")
+    return text.replace(old, new)
+
+
+def variants(src: str) -> dict:
+    """The kernel's source restricted to Matérn-3/2 and NT = 9, and the
+    variants made from it."""
+    base = re.sub(r"  switch \(num_nt\(s\)\) \{.*?#undef REPRO_NT_CASE",
+                  "  return launch<KIND, MAX_NT>(u, w, v, out, workspace, n, m, "
+                  "d, s, splits, stream);\n", src, flags=re.S)
+    base = re.sub(r"  switch \(kind\) \{.*?default:\n      return -1;\n  \}",
+                  "  return launch_kind<kMatern32>(u, w, v, out, workspace, n, "
+                  "m, d, s, splits, st);", base, flags=re.S)
+    no_copy = _sub(base, "    if (stages == 2 && jt + 1 < t_hi) {",
+                   "    if (false) {")
+    no_copy = _sub(no_copy, "  if (t_lo < t_hi) load(buf0, t_lo);",
+                   "  if (t_lo < t_hi) {\n    load(buf0, t_lo);\n"
+                   "    load(buf0 + geo.stage_len, t_lo);\n  }")
+    one_product = base
+    for operands in ("asmall[mt], bbig[nt]", "abig[mt], bsmall[nt]"):
+        one_product = _sub(
+            one_product,
+            "#pragma unroll\n    for (int nt = 0; nt < NT; ++nt)\n#pragma unroll\n"
+            f"      for (int mt = 0; mt < 2; ++mt) mma_tf32(part[mt][nt], "
+            f"{operands});\n", "")
+    return {
+        "full": base,
+        "no_copy": no_copy,
+        "one_buffer": _sub(
+            base, "const int stages = smem_bytes(d, NT, 2) <= kMaxSmem ? 2 : 1;",
+            "const int stages = 1;"),
+        "r2_one_chunk": _sub(base, "  for (int k = 0; k < dk; k += 4) {",
+                             "  for (int k = 0; k < 4; k += 4) {"),
+        "one_product": one_product,
+    }
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ablation: needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import tiled
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30).stdout.strip()
+    src = (ROOT / "src/repro_torch/csrc/kernel_mvm.cu").read_text()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    fns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, text in variants(src).items():
+            cu, so = Path(tmp, f"{name}.cu"), Path(tmp, f"{name}.so")
+            cu.write_text(text)
+            procs[name] = (so, subprocess.Popen(
+                [tiled._nvcc(), *tiled.NVCC_FLAGS, "-shared", "-o", str(so),
+                 str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for name, (so, proc) in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                print(f"{name}: nvcc failed\n{log}", file=sys.stderr)
+                return 1
+            fn = ctypes.CDLL(str(so)).repro_kernel_mvm_fwd
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+            fns[name] = fn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, m, d, s in SHAPES:
+        u = torch.randn((n, d), generator=gen, device="cuda")
+        w = u if n == m else torch.randn((m, d), generator=gen, device="cuda")
+        v = torch.randn((m, s), generator=gen, device="cuda")
+        splits = tiled.split_plan(n, m, s, sms)
+        ws = torch.empty((splits, n, s), device="cuda") if splits > 1 else None
+        cases.append((u, w, v, torch.empty((n, s), device="cuda"), ws, splits,
+                      tiled.kernel_mvm_plain(u, w, v, "matern32")))
+
+    def timed(call, reps):
+        call()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            call()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    lines = []
+    for rnd in range(2):
+        for name, fn in fns.items():
+            rec = {"variant": name, "round": rnd, "nvidia_smi": smi}
+            for u, w, v, out, ws, splits, ref in cases:
+                (n, d), (m, s) = u.shape, v.shape
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def call():
+                    rc = fn(u.data_ptr(), w.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), None if ws is None else ws.data_ptr(),
+                            n, m, d, s, MATERN32, splits, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{name}: launch failed ({rc})")
+
+                key = f"{n}x{m}"
+                rec[f"{key}_ms"] = timed(call, 20 if n > 5000 else 200)
+                rec[f"{key}_splits"] = splits
+                if name == "full":
+                    call()
+                    torch.cuda.synchronize()
+                    rec[f"{key}_rel_err"] = ((out - ref).abs().max()
+                                             / ref.abs().max()).item()
+            print(json.dumps(rec), flush=True)
+            lines.append(json.dumps(rec))
+    (out_dir / "torch_kernel_ablation.jsonl").write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

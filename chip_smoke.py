@@ -15,22 +15,25 @@ Phases, each printing JSON lines:
    kernel splits the work between CUDA cores and tensor cores and the
    all-fp32 bound of the earlier design, and two launches bitwise equal;
    and one ragged shape, checked only. The build fails the smoke if any
-   instantiation of the forward kernel spills registers. Backward: at
-   the CG shape with g != v (the standard estimator's roles) and with
-   u = w, g = v (pathwise), and at the ragged shape. Then the gradient of
-   ``mll_grad_estimate`` through the kernel pair against autograd through
-   the plain tiled MVM at n = 2000, for both estimators.
+   instantiation of either kernel spills registers. Backward: the fused
+   call of the GP gradient (u = w, operands [g | v] and [v | g], s' = 130)
+   at the CG shape, timed, with two launches bitwise equal; the CG shape
+   with g != v (the standard estimator's roles, timed) and with u = w,
+   g = v (pathwise); and the ragged shape; each with its column split
+   count and the bound split as for the forward kernel. Then the gradient
+   of ``mll_grad_estimate`` through the kernel pair against autograd
+   through the plain tiled MVM at n = 2000, for both estimators.
 3. serve: the port's serve entry point (``repro_torch.launch.serve``) at the
    paper's full pol size, gp-iterative widths (64 probes, 1000 RFF pairs,
    Matérn-3/2), CG to 0.01 within 100 epochs, 10 outer steps, then 20
    requests of 64 rows through the bucketed engine. Forward launches must
    equal the CG MVMs + 1 per outer step (the gradient) + the engine's
-   dispatches; backward launches 2 per outer step.
+   dispatches; backward launches 1 per outer step (the fused call).
 4. train: the port's train entry point (``repro_torch.launch.train``) at the
    full pol size (CG to 0.01, rank-100 pivoted-Cholesky preconditioner):
    (a) pathwise, warm start, 20 steps, eval and checkpoint every 10;
    (b) the CLI's defaults (standard estimator, cold start), 3 steps, eval at
-   step 3. Launch counts are held to the solver's MVMs, 1 + 2 per outer step
+   step 3. Launch counts are held to the solver's MVMs, 1 + 1 per outer step
    and the evaluations; then 3 steps on a small input on the card against
    the same steps on the CPU from the same state.
 5. profile: one more outer step of run (a) split into preconditioner build,
@@ -151,17 +154,27 @@ def bound(n: int, m: int, d: int, s: int) -> dict:
                                  times["bytes"])}
 
 
-def bound_bwd(n: int, m: int, d: int, s: int) -> dict:
-    """Least time for one backward call: 2nmd (r2) + 2nms (g v^T) + 2nmd
-    (contraction with the differences) + 3nm (slope, product, row sum)
-    operations at the fp32 CUDA-core peak, vs u, w, g, v read once and du
-    written once at the HBM rate."""
-    ops = 2 * n * m * d + 2 * n * m * s + 2 * n * m * d + 3 * n * m
-    nbytes = 4 * (n * d + m * d + n * s + m * s + n * d)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return {"ops": ops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def bound_bwd(n: int, m: int, d: int, s: int, nbytes: int) -> dict:
+    """Least time for one backward call at Gram width s, as the kernel
+    splits the work: 2nmd (r2) + 2nmd (contraction with the differences)
+    + 3nm (slope, product, row sum) operations at the fp32 CUDA-core peak,
+    3 * 2nms (g v^T in 3xTF32) at the TF32 tensor-core peak, and ``nbytes``
+    (each input read once, du written once) at the HBM rate; the largest
+    of the three. ``bound_fp32_ms`` is the all-fp32 bound of the earlier
+    design (4nmd + 2nms + 3nm operations on the CUDA cores)."""
+    cuda_ops = 4 * n * m * d + 3 * n * m
+    tc_ops = 3 * 2 * n * m * s
+    times = {"cuda_cores": cuda_ops / PEAK_FP32_FLOPS * 1e3,
+             "tensor_cores": tc_ops / PEAK_TF32_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_HBM_BYTES * 1e3}
+    unit = max(times, key=times.get)
+    fp32_ops = cuda_ops + 2 * n * m * s
+    return {"ops_cuda_cores": cuda_ops, "ops_tensor_cores": tc_ops,
+            "bytes": nbytes, "bound_ms": times[unit],
+            "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit,
+            "bound_fp32_ms": max(fp32_ops / PEAK_FP32_FLOPS * 1e3,
+                                 times["bytes"])}
 
 
 def phase_kernels(torch, tiled, registry) -> dict:
@@ -233,24 +246,39 @@ def phase_kernels(torch, tiled, registry) -> dict:
 
 
 def phase_kernels_bwd(torch, tiled, registry) -> dict:
-    """Backward kernel vs plain for every kind: at the CG shape in the
-    standard estimator's roles (w = u, g != v) and the pathwise ones
-    (w = u, g = v), and at the ragged shape; times at the CG shape."""
+    """Backward kernel vs plain for every kind: the fused call of the GP
+    gradient at the CG shape (u = w, [g | v] and [v | g], s' = 130), the CG
+    shape in the standard estimator's roles (w = u, g != v) and the
+    pathwise ones (w = u, g = v), and the ragged shape; times at cg_fused
+    and cg_standard, two launches bitwise equal at cg_fused."""
     gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     n, m, d, s = CG_SHAPE
     u, g, v = rnd(n, d), rnd(n, s), rnd(m, s)
+    gv, vg = torch.cat([g, v], dim=1), torch.cat([v, g], dim=1)
     rn, rm, rd, rs = RAGGED_SHAPE
     ragged = (rnd(rn, rd), rnd(rm, rd), rnd(rn, rs), rnd(rm, rs))
-    cases = (("cg_standard", (u, u, g, v)), ("cg_pathwise", (u, u, g, g)),
-             ("ragged", ragged))
-    results, main_entry = [], None
-    for label, (a, b, c, e) in cases:
+    # label: (kernel call, plain operands (u, w, g, v), timed)
+    cases = (
+        ("cg_fused", lambda kind: tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind),
+         (u, u, gv, vg), True),
+        ("cg_standard", lambda kind: tiled.kernel_mvm_bwd_cuda(u, u, g, v, kind),
+         (u, u, g, v), True),
+        ("cg_pathwise", lambda kind: tiled.kernel_mvm_bwd_cuda(u, u, g, g, kind),
+         (u, u, g, g), False),
+        ("ragged", lambda kind: tiled.kernel_mvm_bwd_cuda(*ragged, kind),
+         ragged, False),
+    )
+    results, main_entry, by_shape = [], None, {}
+    for label, call, (a, b, c, e), timed in cases:
+        splits = tiled.bwd_split_plan(a.shape[0], b.shape[0], sms)
         for kind in KINDS:
-            out = tiled.kernel_mvm_bwd_cuda(a, b, c, e, kind)
+            out = call(kind)
+            again = call(kind) if label == "cg_fused" else out
             torch.cuda.synchronize()
             if kind == "matern12":
                 ref = tiled.kernel_mvm_bwd_plain(a.double(), b.double(),
@@ -261,30 +289,47 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
                 tol = TOL_BWD_VS_PLAIN
             err = (out.double() - ref.double()).abs().max().item()
             scale = ref.abs().max().item()
+            bitwise = bool(torch.equal(out, again))
             rec = {"phase": "kernels_bwd", "shape": label,
                    "n": a.shape[0], "m": b.shape[0], "d": a.shape[1],
-                   "s": c.shape[1], "kind": kind,
+                   "s": c.shape[1], "kind": kind, "splits": splits,
                    "reference": "plain_f64" if kind == "matern12" else "plain_f32",
                    "max_abs_err": err, "max_abs_out": scale,
                    "rel_err": err / scale, "tol_rel": tol,
-                   "ok": bool(math.isfinite(err) and err <= tol * scale)}
-            if label == "cg_standard":
+                   "two_launches_bitwise_equal": bitwise,
+                   "ok": bool(math.isfinite(err) and err <= tol * scale
+                              and bitwise)}
+            if timed:
                 dkappa = registry.get_kernel(kind).dkappa_dr2
 
                 def library(a=a, b=b, c=c, e=e, dkappa=dkappa):
                     dt = (c @ e.T) * dkappa(torch.cdist(a, b) ** 2)
                     return 2.0 * (dt.sum(1, keepdim=True) * a - dt @ b)
 
-                rec["ms"] = time_ms(
-                    lambda: tiled.kernel_mvm_bwd_cuda(a, b, c, e, kind), 10)
+                rec["ms"] = time_ms(lambda: call(kind), 10)
                 rec["plain_ms"] = time_ms(
                     lambda: tiled.kernel_mvm_bwd_plain(a, b, c, e, kind), 2)
                 rec["library_ms"] = time_ms(library, 3)
-                rec.update(bound_bwd(n, m, d, s))
+                # Bytes the function must move: its own inputs once (the
+                # fused call reads u, g and v; the concatenation is the
+                # kernel's), du once.
+                if label == "cg_fused":
+                    nbytes = 4 * (n * d + 2 * n * s + n * d)
+                else:
+                    nbytes = 4 * (n * d + n * s + m * s + n * d)
+                rec.update(bound_bwd(a.shape[0], b.shape[0], a.shape[1],
+                                     c.shape[1], nbytes))
+                rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+                rec["share_of_bound_fp32"] = rec["bound_fp32_ms"] / rec["ms"]
+                if kind == "matern32":
+                    by_shape[label] = {k: rec[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_unit", "bound_fp32_ms", "splits")}
             emit(rec)
             results.append(rec)
-            if label == "cg_standard" and kind == "matern32":
+            if label == "cg_fused" and kind == "matern32":
                 main_entry = rec
+    main_entry["by_shape"] = by_shape
     main_entry["worst_rel_err"] = max(r["rel_err"] for r in results)
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -339,13 +384,13 @@ def phase_serve(torch, tiled) -> tuple:
     run = serve_gp(args)
     report, engine = run.report, run.engine
     launches = tiled.launch_counts()
-    second_passes = tiled.SECOND_PASSES[tiled.KERNEL_NAME]
+    second_passes = dict(tiled.SECOND_PASSES)
     peak = torch.cuda.max_memory_allocated()
 
     steps = len(report["steps"])
     expected = report["cg_mvms"] + steps + report["engine_dispatches"]
     got = launches[tiled.KERNEL_NAME]
-    got_bwd, expected_bwd = launches[tiled.BWD_KERNEL_NAME], 2 * steps
+    got_bwd, expected_bwd = launches[tiled.BWD_KERNEL_NAME], steps
     for st in report["steps"]:
         emit({"phase": "serve", **st})
     # Right answers: the served model on the card vs its plain version on
@@ -373,8 +418,9 @@ def phase_serve(torch, tiled) -> tuple:
         "cg_mvms": report["cg_mvms"],
         "engine_dispatches": report["engine_dispatches"],
         "kernel_launches": got, "expected_launches": expected,
-        "fwd_second_pass_calls": second_passes,
+        "fwd_second_pass_calls": second_passes[tiled.KERNEL_NAME],
         "bwd_kernel_launches": got_bwd, "expected_bwd_launches": expected_bwd,
+        "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
         "host_syncs": sum(st["host_syncs"] for st in report["steps"]),
         "peak_mem_bytes": peak,
         "latency_ms_p50": report["latency_ms_p50"],
@@ -401,7 +447,7 @@ def phase_serve(torch, tiled) -> tuple:
         problems.append(f"served predictions disagree with CPU: {serve_err}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return summary, dict(launches, second_passes=second_passes), run
+    return summary, (launches, second_passes), run
 
 
 def _train_args(**over) -> SimpleNamespace:
@@ -428,7 +474,8 @@ def phase_train(torch, tiled) -> tuple:
             max_n=0, steps=3, eval_every=3, device="cuda"),
     }
     problems, fits = [], {}
-    totals = dict.fromkeys([*tiled.LAUNCHES, "second_passes"], 0)
+    totals = dict.fromkeys(tiled.LAUNCHES, 0)
+    second_totals = dict.fromkeys(tiled.SECOND_PASSES, 0)
     for label, args in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -436,7 +483,7 @@ def phase_train(torch, tiled) -> tuple:
         out, res = run_gp(args)
         torch.cuda.synchronize()
         launches = tiled.launch_counts()
-        second_passes = tiled.SECOND_PASSES[tiled.KERNEL_NAME]
+        second_passes = dict(tiled.SECOND_PASSES)
         peak = torch.cuda.max_memory_allocated()
         h = res.history
         steps = len(h["iters"])
@@ -444,11 +491,11 @@ def phase_train(torch, tiled) -> tuple:
         expected = {
             tiled.KERNEL_NAME: int(h["mvms"].sum()) + steps
             + int(h["eval_mvms"].sum()) + evals,
-            tiled.BWD_KERNEL_NAME: 2 * steps,
+            tiled.BWD_KERNEL_NAME: steps,
         }
         for k in tiled.LAUNCHES:
             totals[k] += launches[k]
-        totals["second_passes"] += second_passes
+            second_totals[k] += second_passes[k]
         ckpts = sorted(p.name for p in CKPT_DIR.glob("step_*.npz")) \
             if args.ckpt_dir else []
         rec = {"phase": "train", "run": label, "estimator":
@@ -466,7 +513,8 @@ def phase_train(torch, tiled) -> tuple:
                "final_res_z": out["final_res_z"],
                "total_time_s": out["total_time_s"],
                "launches": launches, "expected_launches": expected,
-               "fwd_second_pass_calls": second_passes,
+               "fwd_second_pass_calls": second_passes[tiled.KERNEL_NAME],
+               "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
                "peak_mem_bytes": peak, "checkpoints": ckpts}
         emit(rec)
         fits[label] = (args, res)
@@ -485,7 +533,7 @@ def phase_train(torch, tiled) -> tuple:
     problems += _train_vs_cpu(torch)
     if problems:
         raise AssertionError("; ".join(problems))
-    return totals, fits
+    return (totals, second_totals), fits
 
 
 def _train_vs_cpu(torch) -> list:
@@ -640,22 +688,24 @@ def main() -> int:
                    for tok in [line.split("Used ")[1].split(" ")[0]]}) \
         if ptxas.exists() else []
     spills = ptxas_spills(ptxas.read_text()) if ptxas.exists() else {}
-    fwd_spills = {k: b for k, b in spills.items() if tiled.KERNEL_NAME in k}
+    by_kernel = {name: {k: b for k, b in spills.items() if name in k}
+                 for name in tiled.LAUNCHES}
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "library": str(lib),
           "registers_per_thread": regs, "instantiations": len(spills),
           "instantiations_without_spills": sum(b == 0 for b in spills.values()),
-          "fwd_instantiations": len(fwd_spills),
-          "fwd_instantiations_with_spills": sum(b > 0 for b in
-                                                fwd_spills.values())})
+          "instantiations_by_kernel": {name: len(found) for name, found in
+                                       by_kernel.items()},
+          "instantiations_with_spills": sum(b > 0 for b in spills.values())})
 
     failures = []
-    if not fwd_spills or any(fwd_spills.values()):
-        print(f"chip_smoke: forward kernel spills: {fwd_spills}",
-              file=sys.stderr, flush=True)
-        failures.append("device")
+    for name, found in by_kernel.items():
+        if not found or any(found.values()):
+            print(f"chip_smoke: {name} spills (or was not found in the ptxas "
+                  f"report): {found}", file=sys.stderr, flush=True)
+            failures.append("device")
     fwd_entry = bwd_entry = None
     path_launches = []
     try:
@@ -683,18 +733,19 @@ def main() -> int:
         traceback.print_exc()
         failures.append("train")
 
-    def total(name):
-        return sum(counts[name] for counts in path_launches)
+    def total(name, which=0):
+        return sum(counts[which][name] for counts in path_launches)
 
     entries = [
         _kernel_entry(tiled.KERNEL_NAME, "src/repro_torch/csrc/kernel_mvm.cu",
                       "src/repro/kernels/tiled.py:98",
                       total(tiled.KERNEL_NAME), fwd_entry,
-                      second_pass_calls=total("second_passes")),
+                      second_pass_calls=total(tiled.KERNEL_NAME, 1)),
         _kernel_entry(tiled.BWD_KERNEL_NAME,
                       "src/repro_torch/csrc/kernel_mvm_bwd.cu",
                       "src/repro/kernels/tiled.py:131",
-                      total(tiled.BWD_KERNEL_NAME), bwd_entry),
+                      total(tiled.BWD_KERNEL_NAME), bwd_entry,
+                      second_pass_calls=total(tiled.BWD_KERNEL_NAME, 1)),
     ]
     if failures:
         fail(f"phases failed: {failures}", code=1)

@@ -11,8 +11,9 @@ reference runs ``jax.value_and_grad``. The MVM differentiated follows the
 operator's backend:
 
 * ``cuda``: :func:`repro_torch.kernels.ops.kernel_mvm`, whose
-  ``autograd.Function`` runs the forward tile kernel once and the backward
-  tile kernel twice (``du`` and ``dw``) on CUDA tensors, and their plain
+  ``autograd.Function`` runs the forward tile kernel once and, since x is
+  both arguments, the backward tile kernel once for ``du + dw`` (the fused
+  call on ``[g | v]`` and ``[v | g]``) on CUDA tensors, and their plain
   versions on CPU tensors. Nothing of size n^2 is kept.
 * ``streamed`` and ``dense``: the plain tiled MVM
   :func:`repro_torch.solvers.operator.kernel_mvm_tiled`, as the reference

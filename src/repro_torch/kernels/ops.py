@@ -10,7 +10,11 @@ kernel runs through :class:`_UnitMVM`, and ``signal**2`` is applied after.
 custom VJP: its forward is :func:`repro_torch.kernels.tiled.kernel_mvm_unit`
 and its backward computes ``du`` and ``dw`` with the backward tile kernel
 (``dw`` by the (u, w) / (g, v) symmetry) and ``dv`` with the forward kernel,
-roles swapped, each only where autograd asks for it. On CUDA tensors these
+roles swapped, each only where autograd asks for it. When ``x2 is x1`` (the
+GP case) one pre-scaled tensor is both ``u`` and ``w``, and ``du + dw`` is
+one call of the backward tile kernel on ``(u, u, [g | v], [v | g])``
+(:func:`repro_torch.kernels.tiled.kernel_mvm_bwd_fused_unit`); autograd
+gives it to the tensor passed twice. On CUDA tensors these
 are the hand-written kernels, on CPU tensors their plain versions. The
 lengthscale and signal gradients flow through the plain pre-scaling
 ``x / ell`` and post-scaling ``signal**2 * out``, as in the reference: one
@@ -25,7 +29,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.gp.hyperparams import HyperParams, resolve_kind
-from repro_torch.kernels.tiled import kernel_mvm_bwd_unit, kernel_mvm_unit
+from repro_torch.kernels.tiled import (kernel_mvm_bwd_fused_unit,
+                                      kernel_mvm_bwd_unit, kernel_mvm_unit)
 
 
 class _UnitMVM(torch.autograd.Function):
@@ -35,6 +40,8 @@ class _UnitMVM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, w, v, kind):
         ctx.kind = kind
+        # Tensors unpacked from saved_tensors need not keep their identity.
+        ctx.same = u is w
         ctx.save_for_backward(u, w, v)
         return kernel_mvm_unit(u.detach(), w.detach(), v.detach(), kind)
 
@@ -44,9 +51,12 @@ class _UnitMVM(torch.autograd.Function):
         u, w, v = (t.detach() for t in ctx.saved_tensors)
         g = g.to(torch.float32).contiguous()
         need_u, need_w, need_v, _ = ctx.needs_input_grad
+        dv = kernel_mvm_unit(w, u, g, ctx.kind) if need_v else None
+        if ctx.same:
+            du = kernel_mvm_bwd_fused_unit(u, g, v, ctx.kind) if need_u else None
+            return du, None, dv, None
         du = kernel_mvm_bwd_unit(u, w, g, v, ctx.kind) if need_u else None
         dw = kernel_mvm_bwd_unit(w, u, v, g, ctx.kind) if need_w else None
-        dv = kernel_mvm_unit(w, u, g, ctx.kind) if need_v else None
         return du, dw, dv, None
 
 
@@ -67,7 +77,7 @@ def kernel_mvm(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
         v = v[:, None]
     ell = params.lengthscales
     u = (x1 / ell).to(torch.float32).contiguous()
-    w = (x2 / ell).to(torch.float32).contiguous()
+    w = u if x2 is x1 else (x2 / ell).to(torch.float32).contiguous()
     out = _UnitMVM.apply(u, w, v.to(torch.float32).contiguous(), kind)
     out = ((params.signal**2) * out).to(x1.dtype)
     return out[:, 0] if squeeze else out

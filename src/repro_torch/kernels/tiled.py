@@ -4,7 +4,10 @@ Forward: ``out[i] = sum_j kappa(||u_i - w_j||^2) v_j`` on pre-scaled inputs
 ``u`` (n, d), ``w`` (m, d) and ``v`` (m, s), fp32, without materialising K.
 Backward: ``du[i] = 2 sum_j D_ij (u_i - w_j)`` with ``D = (g v^T) .*
 dkappa/dr2``, the cotangent of ``u`` for the output cotangent ``g`` (n, s);
-with (u, w) and (g, v) swapped it is the cotangent of ``w``. They replace
+with (u, w) and (g, v) swapped it is the cotangent of ``w``, and with
+``(u, u, [g | v], [v | g])`` it is ``du + dw`` of ``kappa(u, u) @ v`` (the
+fused call: ``(g_i . v_j + v_i . g_j)`` is the Gram of the concatenated
+operands, so one sweep serves both roles). They replace
 the TPU kernels ``kernel_mvm_pallas`` and ``kernel_mvm_bwd_pallas`` of the
 reference (``src/repro/kernels/tiled.py:98`` and ``:131``); the designs and
 their bounds on an H100 are described at the top of ``csrc/kernel_mvm.cu``
@@ -12,17 +15,21 @@ and ``csrc/kernel_mvm_bwd.cu``.
 
 * :func:`kernel_mvm_cuda` and :func:`kernel_mvm_bwd_cuda` launch the
   hand-written kernels on CUDA tensors (and raise on anything else). They
-  count their launches in :data:`LAUNCHES`; the forward wrapper counts the
-  calls that took its second pass (the split sum) in :data:`SECOND_PASSES`.
-* :func:`split_plan` picks how many column splits the forward kernel runs,
-  from the shapes and the card's SM count.
+  count their launches in :data:`LAUNCHES`, and the calls that took their
+  second pass (the split sum) in :data:`SECOND_PASSES`.
+  :func:`kernel_mvm_bwd_fused_cuda` is the fused call: it builds the
+  concatenated operands and launches the backward kernel once.
+* :func:`split_plan` and :func:`bwd_split_plan` pick how many column splits
+  each kernel runs, from the shapes and the card's SM count.
 * :func:`kernel_mvm_plain` and :func:`kernel_mvm_bwd_plain` are the same
   functions in plain tiled PyTorch, with ``r2`` by direct differences as in
   the kernels.
-* :func:`kernel_mvm_mirror` repeats the forward kernel's arithmetic on the
-  CPU for the tests: its column tiles and splits, the split sum in split
-  order, and its 3xTF32 products (:func:`tf32_round`).
-* :func:`kernel_mvm_unit` and :func:`kernel_mvm_bwd_unit` pick between them
+* :func:`kernel_mvm_mirror` and :func:`kernel_mvm_bwd_mirror` repeat the
+  kernels' arithmetic on the CPU for the tests: their column tiles and
+  splits, the split sum in split order, and their 3xTF32 products
+  (:func:`tf32_round`).
+* :func:`kernel_mvm_unit`, :func:`kernel_mvm_bwd_unit` and
+  :func:`kernel_mvm_bwd_fused_unit` pick between them
   by the device of their inputs: the plain version for CPU tensors, the
   kernel for CUDA tensors. There is no fallback from one to the other.
 
@@ -59,19 +66,22 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel wrapper since the last reset (chip_smoke.py reads
-# them to show the main path went through the kernels), and the forward
-# calls among them that ran the second pass (the sum over column splits).
+# them to show the main path went through the kernels), and the calls
+# among them that ran the second pass (the sum over column splits).
 LAUNCHES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
-SECOND_PASSES = {KERNEL_NAME: 0}
+SECOND_PASSES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
 
 # Geometry of csrc/kernel_mvm.cu: 128-row blocks, 128-row column tiles,
 # s-chunks of 8 * NT columns with NT <= 9, row strides padded as the kernel
 # pads them; for planning splits and rejecting shapes before the launch.
 FWD_BM, FWD_BN, FWD_MAX_NT = 128, 128, 9
-# Shared-memory geometry of csrc/kernel_mvm_bwd.cu (BM = BN = 64, KS = BN +
-# 16, odd row strides, d <= 96).
-_BM, _BN, _KS = 64, 64, 80
+# Geometry of csrc/kernel_mvm_bwd.cu: 128-row blocks, 64-row column tiles,
+# d <= 96 (16-coordinate groups of registers), row strides padded as the
+# kernel pads them; the fused call pads s' to a multiple of 8 (one mma
+# k-step, and 16-byte rows for the copies).
+BWD_BM, BWD_BN = 128, 64
 _BWD_MAX_D = 96
+_FUSED_S_MULTIPLE = 8
 _MAX_SMEM_BYTES = 232_448
 
 _lib_lock = threading.Lock()
@@ -159,23 +169,38 @@ def _fwd_grid(n: int, m: int, s: int) -> tuple:
     return (-(-n // FWD_BM), -(-s // (8 * _fwd_nt(s))), -(-m // FWD_BN))
 
 
-@lru_cache(maxsize=4096)
-def split_plan(n: int, m: int, s: int, num_sms: int) -> int:
-    """Number of column splits for the forward kernel at these shapes.
+def _plan_splits(base: int, tiles: int, num_sms: int) -> int:
+    """Column splits for ``base`` blocks per split over ``tiles`` column
+    tiles, one block per SM at a time.
 
-    One split when there is at most one column tile, or when the row tiles
-    and s-chunks alone make two waves of blocks on ``num_sms`` SMs.
-    Otherwise the count, up to four waves of blocks, that minimises
-    ``ceil(blocks / num_sms) * ceil(tiles / splits)`` (the column tiles the
-    busiest SM walks), the smallest such count on ties.
+    One split when there is at most one column tile, or when the base
+    blocks alone make two waves on ``num_sms`` SMs. Otherwise the count, up
+    to four waves of blocks, that minimises ``ceil(blocks / num_sms) *
+    ceil(tiles / splits)`` (the column tiles the busiest SM walks), the
+    smallest such count on ties.
     """
-    rows, chunks, tiles = _fwd_grid(n, m, s)
-    base = rows * chunks
     if tiles <= 1 or base >= 2 * num_sms:
         return 1
     most = max(1, min(tiles, 65535, (4 * num_sms) // base))
     return min(range(1, most + 1),
                key=lambda k: (-(-base * k // num_sms)) * -(-tiles // k))
+
+
+@lru_cache(maxsize=4096)
+def split_plan(n: int, m: int, s: int, num_sms: int) -> int:
+    """Number of column splits for the forward kernel at these shapes: its
+    base blocks are the row tiles times the s-chunks (:func:`_plan_splits`).
+    """
+    rows, chunks, tiles = _fwd_grid(n, m, s)
+    return _plan_splits(rows * chunks, tiles, num_sms)
+
+
+@lru_cache(maxsize=4096)
+def bwd_split_plan(n: int, m: int, num_sms: int) -> int:
+    """Number of column splits for the backward kernel at these shapes: its
+    base blocks are the 128-row tiles of u, its column tiles 64 rows of w
+    (:func:`_plan_splits`)."""
+    return _plan_splits(-(-n // BWD_BM), -(-m // BWD_BN), num_sms)
 
 
 def split_tile_range(z: int, splits: int, tiles: int) -> tuple:
@@ -228,6 +253,41 @@ def kernel_mvm_mirror(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
             part = part + _tf32_product(kappa(torch.sum(diff * diff, dim=-1)),
                                         v[j], passes)
         total = part if total is None else total + part
+    return total
+
+
+def kernel_mvm_bwd_mirror(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                          v: torch.Tensor, kind: str = "matern32",
+                          splits: Optional[int] = None,
+                          passes: int = 3) -> torch.Tensor:
+    """The backward kernel's arithmetic in plain PyTorch, for the tests.
+
+    fp32 CPU tensors. Column tiles of 64 rows of (w, v); per tile ``r2`` by
+    direct differences and the registry slope in fp32 (the kernel evaluates
+    the slope on the special-function units, within a few ulps), the Gram
+    ``g v^T`` from 0 with TF32 operands (:func:`_tf32_product`, ``passes``
+    3 or 1), and the sum in difference form ``sum_j D_ij (u_i - w_j)``;
+    each split's sum over its own tiles, and the splits summed in split
+    order. ``splits`` defaults to :func:`bwd_split_plan` on an H100's 132
+    SMs. With ``(u, u, [g | v], [v | g])`` it mirrors the fused call.
+    """
+    dkappa = get_kernel(kind).dkappa_dr2
+    n, d = u.shape
+    m = w.shape[0]
+    tiles = -(-m // BWD_BN)
+    if splits is None:
+        splits = bwd_split_plan(n, m, 132)
+    total = None
+    for z in range(splits):
+        lo, hi = split_tile_range(z, splits, tiles)
+        part = torch.zeros((n, d), dtype=torch.float32)
+        for jt in range(lo, hi):
+            j = slice(jt * BWD_BN, (jt + 1) * BWD_BN)
+            diff = u[:, None, :] - w[None, j, :]
+            dt = (_tf32_product(g, v[j].T, passes)
+                  * dkappa(torch.sum(diff * diff, dim=-1)))
+            part = part + torch.einsum("ij,ijk->ik", dt, diff)
+        total = 2.0 * part if total is None else total + 2.0 * part
     return total
 
 
@@ -294,7 +354,7 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             bwd = lib.repro_kernel_mvm_bwd
-            bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             bwd.restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -324,7 +384,13 @@ def _num_sms(index: int) -> int:
 
 
 def _bwd_smem_bytes(d: int, s: int) -> int:
-    return 4 * ((_BM + _BN) * ((d | 1) + (s | 1)) + _BM * _KS)
+    """Least dynamic shared memory of the backward kernel: g's and u's row
+    tiles and one (w, v) column-tile buffer at the kernel's padded row
+    strides. (It takes a second buffer where that fits.)"""
+    dp = -(-d // 4) * 4
+    dp += 4 if dp % 8 == 0 else 0
+    sp = 8 * (-(-s // 8) | 1)
+    return 4 * (BWD_BM + BWD_BN) * (dp + sp)
 
 
 def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
@@ -401,7 +467,10 @@ def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     """Launch the backward tile kernel on CUDA tensors; (n, d) fp32 result.
 
     The same checks as :func:`kernel_mvm_cuda`, for u (n, d), w (m, d),
-    g (n, s) and v (m, s), with d <= 96.
+    g (n, s) and v (m, s), with d <= 96 and s as far as shared memory
+    allows (s <= 200 at d = 96). The column range is split as
+    :func:`bwd_split_plan` says; with more than one split the partial sums
+    go to a workspace and the kernel's second pass adds them in split order.
     """
     _check_inputs("kernel_mvm_bwd_cuda", u=u, w=w, g=g, v=v)
     (n, d), (m, dw), (ng, s), (mv, sv) = u.shape, w.shape, g.shape, v.shape
@@ -419,10 +488,46 @@ def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     if n == 0 or s == 0:
         return torch.zeros((n, d), dtype=torch.float32, device=u.device)
     du = torch.empty((n, d), dtype=torch.float32, device=u.device)
+    splits = bwd_split_plan(n, m, _num_sms(u.device.index))
+    workspace = (torch.empty((splits, n, d), dtype=torch.float32,
+                             device=u.device) if splits > 1 else None)
     _launch(BWD_KERNEL_NAME, _library().repro_kernel_mvm_bwd, u.device,
             u.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(),
-            du.data_ptr(), n, m, d, s, KIND_CODES[kind])
+            du.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            n, m, d, s, KIND_CODES[kind], splits)
+    if splits > 1:
+        SECOND_PASSES[BWD_KERNEL_NAME] += 1
     return du
+
+
+def fused_operands(g: torch.Tensor, v: torch.Tensor) -> tuple:
+    """``([g | v | 0], [v | g | 0])`` for the fused backward call: (n, s')
+    each, s' = 2s padded with zero columns to a multiple of 8 (a zero
+    column adds nothing to the Gram)."""
+    n, s = g.shape
+    width = -(-2 * s // _FUSED_S_MULTIPLE) * _FUSED_S_MULTIPLE
+    gv = torch.zeros((n, width), dtype=torch.float32, device=g.device)
+    vg = torch.zeros_like(gv)
+    gv[:, :s], gv[:, s:2 * s] = g, v
+    vg[:, :s], vg[:, s:2 * s] = v, g
+    return gv, vg
+
+
+def kernel_mvm_bwd_fused_cuda(u: torch.Tensor, g: torch.Tensor,
+                              v: torch.Tensor,
+                              kind: str = "matern32") -> torch.Tensor:
+    """``du + dw`` of ``kappa(u, u) @ v`` for the output cotangent ``g``:
+    one launch of the backward kernel on ``(u, u, [g | v], [v | g])``.
+    u (n, d), g and v (n, s) CUDA tensors; the checks of
+    :func:`kernel_mvm_bwd_cuda` apply at s' = 2s rounded up to 8."""
+    _check_inputs("kernel_mvm_bwd_fused_cuda", u=u, g=g, v=v)
+    if g.shape != v.shape or g.shape[0] != u.shape[0]:
+        raise ValueError(
+            f"kernel_mvm_bwd_fused_cuda: shapes u{tuple(u.shape)} "
+            f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
+    gv, vg = fused_operands(g, v)
+    return kernel_mvm_bwd_cuda(u, u, gv, vg, kind)
 
 
 def kernel_mvm_unit(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -439,3 +544,15 @@ def kernel_mvm_bwd_unit(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     if u.device.type == "cpu":
         return kernel_mvm_bwd_plain(u, w, g, v, kind=kind)
     return kernel_mvm_bwd_cuda(u, w, g, v, kind=kind)
+
+
+def kernel_mvm_bwd_fused_unit(u: torch.Tensor, g: torch.Tensor,
+                              v: torch.Tensor,
+                              kind: str = "matern32") -> torch.Tensor:
+    """``du + dw`` of ``kappa(u, u) @ v`` in one call of the backward unit
+    on ``(u, u, [g | v], [v | g])``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU ones."""
+    if u.device.type == "cpu":
+        return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=1),
+                                    torch.cat([v, g], dim=1), kind=kind)
+    return kernel_mvm_bwd_fused_cuda(u, g, v, kind=kind)

@@ -4,9 +4,9 @@ card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The forward and backward kernels are held to their plain versions, and the
-hyper-gradient through the kernel pair on the card to the same function on
-the CPU."""
+The forward and backward kernels (and the backward's fused call) are held
+to their plain versions, and the hyper-gradient through the kernel pair on
+the card to the same function on the CPU."""
 import numpy as np
 import pytest
 
@@ -115,6 +115,100 @@ def test_cuda_bwd_kernel_matches_plain(kind):
     assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
 
 
+# Backward kernel shapes (n, m, d, s): 1, 64, 300 and 12150 rows against
+# the full pol column range and a ragged one, m < 64 and m = 0, one column,
+# the path's s = 65 and the fused call's 130 (and 136 and 200 at the top of
+# the range), d = 5, 26, 90 and 96 (one tile buffer where two do not fit).
+BWD_SHAPES = [
+    (1, 12150, 26, 65), (64, 12150, 26, 65), (300, 12150, 26, 65),
+    (12150, 277, 26, 65), (1, 277, 26, 65), (64, 277, 26, 65),
+    (300, 50, 26, 65), (300, 0, 26, 65), (64, 277, 26, 1),
+    (300, 277, 26, 130), (300, 277, 5, 65), (300, 277, 90, 65),
+    (300, 277, 90, 136), (64, 277, 96, 200),
+]
+
+
+def _bwd_inputs(n, m, d, s, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = 0.3 * torch.randn((n, d), generator=gen, device="cuda")
+    w = 0.3 * torch.randn((m, d), generator=gen, device="cuda")
+    g = torch.randn((n, s), generator=gen, device="cuda")
+    v = torch.randn((m, s), generator=gen, device="cuda")
+    return u, w, g, v
+
+
+def _bwd_ref(u, w, g, v, kind):
+    """The plain version: fp32 at 2e-5 of the largest output, Matérn-1/2
+    in float64 at 1e-4."""
+    if kind == "matern12":
+        return tiled.kernel_mvm_bwd_plain(u.double(), w.double(), g.double(),
+                                          v.double(), kind), 1e-4
+    return tiled.kernel_mvm_bwd_plain(u, w, g, v, kind).double(), 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BWD_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_bwd_kernel_matches_plain_over_shapes(kind, shape):
+    """On a card: the backward kernel vs its plain version over the shape
+    list (splits, ragged edges, the one-buffer path), at the tolerances of
+    ``chip_smoke.py``."""
+    _cuda_or_skip()
+    u, w, g, v = _bwd_inputs(*shape)
+    got = tiled.kernel_mvm_bwd_cuda(u, w, g, v, kind).double()
+    ref, tol = _bwd_ref(u, w, g, v, kind)
+    assert got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= tol * max(
+        ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_bwd_fused_matches_plain(kind):
+    """On a card: the fused call (u, u, [g | v], [v | g], padded to s' =
+    136) vs the plain version on the unpadded operands, with coincident
+    points on the diagonal."""
+    _cuda_or_skip()
+    u, _, g, v = _bwd_inputs(1000, 1000, 26, 65, seed=2)
+    got = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind).double()
+    ref, tol = _bwd_ref(u, u, torch.cat([g, v], 1), torch.cat([v, g], 1),
+                        kind)
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_split_path_is_deterministic():
+    """On a card: at 300 x 12150 the column range is split and the partial
+    sums go through the second pass; two launches give bitwise equal
+    outputs, and each call counts one launch and one second pass."""
+    _cuda_or_skip()
+    u, _, g, v = _bwd_inputs(300, 300, 26, 65, seed=4)
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    assert tiled.bwd_split_plan(300, 300, sms) > 1
+    tiled.reset_launch_counts()
+    first = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, "matern32")
+    second = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, "matern32")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert tiled.LAUNCHES[tiled.BWD_KERNEL_NAME] == 2
+    assert tiled.SECOND_PASSES[tiled.BWD_KERNEL_NAME] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_rejects_shapes_outside_its_range():
+    """On a card: d > 96, or s beyond what shared memory holds, raise before
+    any launch."""
+    _cuda_or_skip()
+    before = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
+    for n, d, s in ((8, 97, 9), (8, 96, 208)):
+        u, w, g, v = _bwd_inputs(n, n, d, s)
+        with pytest.raises(ValueError, match="outside the kernel's range"):
+            tiled.kernel_mvm_bwd_cuda(u, w, g, v)
+    assert tiled.launch_counts()[tiled.BWD_KERNEL_NAME] == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("estimator", ["pathwise", "standard"])
 def test_cuda_mll_grad_matches_cpu(estimator):
@@ -160,4 +254,32 @@ def test_cuda_unit_mvm_grads_match_cpu(kind):
         return [g.cpu() for g in torch.autograd.grad(loss, args + leaves)]
 
     for a, b in zip(grads("cuda"), grads("cpu")):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_unit_mvm_grads_same_input_match_cpu(kind):
+    """On a card: x1 is x2 (the GP case, one fused backward launch): the
+    gradients of sum(K(x, x) v ** 2) for x, v and the hyperparameters vs
+    the same on the CPU, at 1e-4 of each gradient's largest entry; one
+    backward launch on the card."""
+    _cuda_or_skip()
+    from repro_torch.kernels.ops import kernel_mvm
+
+    x, v = _draws(17, (300, 5), (300, 9))
+    tp = _params(5, 18, kind)
+
+    def grads(device):
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x, v)]
+        leaves = [p.to(device).requires_grad_(True) for p in tp.leaves[:2]]
+        p = tp.with_leaves(leaves + [tp.raw_noise.to(device)])
+        loss = torch.sum(kernel_mvm(args[0], args[0], args[1], p) ** 2)
+        return [g.cpu() for g in torch.autograd.grad(loss, args + leaves)]
+
+    tiled.reset_launch_counts()
+    card = grads("cuda")
+    assert tiled.LAUNCHES[tiled.BWD_KERNEL_NAME] == 1
+    for a, b in zip(card, grads("cpu")):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()

@@ -11,18 +11,19 @@ Phases, each printing JSON lines:
    one PyTorch library yardstick, and the least time the card could take
    (``bound_ms``). Forward: at the paths' shapes (CG: 12150 x 12150,
    d=26, s=65; prediction: 64 x 12150; the engine's 16-row bucket; a
-   500-row SGD slab), each with its column split count, the bound as the
-   kernel splits the work between CUDA cores and tensor cores and the
-   all-fp32 bound of the earlier design, and two launches bitwise equal;
-   and one ragged shape, checked only. The build fails the smoke if any
-   instantiation of either kernel spills registers. Backward: the fused
-   call of the GP gradient (u = w, operands [g | v] and [v | g], s' = 130)
-   at the CG shape, timed, with two launches bitwise equal; the CG shape
-   with g != v (the standard estimator's roles, timed) and with u = w,
-   g = v (pathwise); and the ragged shape; each with its column split
-   count and the bound split as for the forward kernel. Then the gradient
-   of ``mll_grad_estimate`` through the kernel pair against autograd
-   through the plain tiled MVM at n = 2000, for both estimators.
+   500-row slab of unpadded pol; AP's column slab 13000 x 1000 and SGD's
+   row slab 500 x 12500 of padded pol), each with its column split count,
+   the bound as the kernel splits the work between CUDA cores and tensor
+   cores and the all-fp32 bound of the earlier design, and two launches
+   bitwise equal; and one ragged shape, checked only. The build fails the
+   smoke if any instantiation of either kernel spills registers. Backward:
+   the fused call of the GP gradient (u = w, operands [g | v] and [v | g],
+   s' = 130) at the CG shape, timed, with two launches bitwise equal; the
+   CG shape with g != v (the standard estimator's roles, timed) and with
+   u = w, g = v (pathwise); and the ragged shape; each with its column
+   split count and the bound split as for the forward kernel. Then the
+   gradient of ``mll_grad_estimate`` through the kernel pair against
+   autograd through the plain tiled MVM at n = 2000, for both estimators.
 3. serve: the port's serve entry point (``repro_torch.launch.serve``) at the
    paper's full pol size, gp-iterative widths (64 probes, 1000 RFF pairs,
    Matérn-3/2), CG to 0.01 within 100 epochs, 10 outer steps, then 20
@@ -30,15 +31,22 @@ Phases, each printing JSON lines:
    equal the CG MVMs + 1 per outer step (the gradient) + the engine's
    dispatches; backward launches 1 per outer step (the fused call).
 4. train: the port's train entry point (``repro_torch.launch.train``) at the
-   full pol size (CG to 0.01, rank-100 pivoted-Cholesky preconditioner):
-   (a) pathwise, warm start, 20 steps, eval and checkpoint every 10;
-   (b) the CLI's defaults (standard estimator, cold start), 3 steps, eval at
-   step 3. Launch counts are held to the solver's MVMs, 1 + 1 per outer step
-   and the evaluations; then 3 steps on a small input on the card against
-   the same steps on the CPU from the same state.
-5. profile: one more outer step of run (a) split into preconditioner build,
-   CG solve and gradient, and one outer step under ``torch.profiler``
-   (device busy share, top kernels).
+   full pol size: (a) CG to 0.01 with the rank-100 pivoted-Cholesky
+   preconditioner, pathwise, warm start, 20 steps, eval and checkpoint every
+   10; (b) the CLI's defaults (CG, standard estimator, cold start), 3 steps,
+   eval at step 3; (c) AP, pathwise, warm start, 10 epochs per step,
+   1000-row blocks (pol padded to 13000 rows), 10 steps, eval at step 10;
+   (d) SGD likewise with 500-row batches (padded to 12500) and the paper's
+   learning-rate grid. Launch counts are held to the solver's work (CG's
+   MVMs; AP's initial residual and one column slab per iteration; SGD's row
+   slab per iteration and the grid's solves), 1 + 1 per outer step for the
+   gradient and the evaluations; then 3 steps on a small input on the card
+   against the same steps on the CPU from the same state, for CG, AP and
+   SGD (one block schedule handed to both).
+5. profile: one more outer step of runs (a), (c) and (d) split into the
+   solve's setup (preconditioner or block Cholesky), the solve (and its time
+   per iteration) and the gradient, and one outer step of each under
+   ``torch.profiler`` (device busy share, top kernels).
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -87,11 +95,18 @@ CG_SHAPE = (12150, 12150, 26, 65)
 PREDICT_SHAPE = (64, 12150, 26, 65)
 BUCKET16_SHAPE = (16, 12150, 26, 65)  # the engine's smallest bucket
 SGD_SLAB_SHAPE = (500, 12150, 26, 65)  # an SGD batch's row slab
+# The slabs of train runs (c) and (d): pol padded to 13000 rows for AP's
+# 1000-row blocks (a column slab K(x, x_blk) @ delta) and to 12500 for SGD's
+# 500-row batches (a row slab K(x_blk, x) @ v).
+AP_COL_SLAB_SHAPE = (13000, 1000, 26, 65)
+SGD_SLAB_PADDED_SHAPE = (500, 12500, 26, 65)
 RAGGED_SHAPE = (1001, 777, 7, 9)
 # Forward kernel: (label, shape, timed).
 FWD_SHAPES = (("cg", CG_SHAPE, True), ("predict", PREDICT_SHAPE, True),
               ("bucket16", BUCKET16_SHAPE, True),
               ("sgd_slab", SGD_SLAB_SHAPE, True),
+              ("ap_col_slab", AP_COL_SLAB_SHAPE, True),
+              ("sgd_slab_padded", SGD_SLAB_PADDED_SHAPE, True),
               ("ragged", RAGGED_SHAPE, False))
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 
@@ -461,17 +476,23 @@ def _train_args(**over) -> SimpleNamespace:
 
 
 def phase_train(torch, tiled) -> tuple:
-    """The port's train entry point at full pol size, in two runs, each
+    """The port's train entry point at full pol size, in four runs, each
     with the launch counts set to 0 just before it and read just after."""
     from repro_torch.launch.train import run_gp
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    blocks = dict(max_n=0, pathwise=True, warm_start=True, budget=10.0,
+                  steps=10, eval_every=10, device="cuda")
     runs = {
         "a_pathwise_warm": _train_args(
             max_n=0, pathwise=True, warm_start=True, steps=20, eval_every=10,
             ckpt_every=10, ckpt_dir=str(CKPT_DIR), device="cuda"),
         "b_defaults_standard_cold": _train_args(
             max_n=0, steps=3, eval_every=3, device="cuda"),
+        "c_ap_pathwise_warm_budget10": _train_args(
+            solver="ap", block_size=1000, **blocks),
+        "d_sgd_pathwise_warm_budget10": _train_args(
+            solver="sgd", batch_size=500, sgd_lr=0.0, **blocks),
     }
     problems, fits = [], {}
     totals = dict.fromkeys(tiled.LAUNCHES, 0)
@@ -480,17 +501,22 @@ def phase_train(torch, tiled) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tiled.reset_launch_counts()
-        out, res = run_gp(args)
+        run = run_gp(args)
         torch.cuda.synchronize()
         launches = tiled.launch_counts()
         second_passes = dict(tiled.SECOND_PASSES)
         peak = torch.cuda.max_memory_allocated()
-        h = res.history
+        out, res, h = run.summary, run.fit, run.fit.history
         steps = len(h["iters"])
         evals = len(h["eval_step"])
+        # Forward launches: every full MVM, every AP/SGD slab (one per
+        # iteration), the gradient's forward (1 per step), each evaluation's
+        # cross-MVM and solves, and the SGD grid's slabs and MVMs.
+        slabs = int(h["iters"].sum()) if args.solver != "cg" else 0
+        grid = sum(t.iters + t.mvms for _, t in run.lr_trials)
         expected = {
-            tiled.KERNEL_NAME: int(h["mvms"].sum()) + steps
-            + int(h["eval_mvms"].sum()) + evals,
+            tiled.KERNEL_NAME: int(h["mvms"].sum()) + slabs + steps
+            + int(h["eval_mvms"].sum()) + evals + grid,
             tiled.BWD_KERNEL_NAME: steps,
         }
         for k in tiled.LAUNCHES:
@@ -498,14 +524,25 @@ def phase_train(torch, tiled) -> tuple:
             second_totals[k] += second_passes[k]
         ckpts = sorted(p.name for p in CKPT_DIR.glob("step_*.npz")) \
             if args.ckpt_dir else []
-        rec = {"phase": "train", "run": label, "estimator":
-               "pathwise" if args.pathwise else "standard",
-               "warm_start": args.warm_start, "precond_rank": args.precond_rank,
+        rec = {"phase": "train", "run": label, "solver": args.solver,
+               "estimator": "pathwise" if args.pathwise else "standard",
+               "warm_start": args.warm_start,
+               "budget_epochs": args.budget or None,
+               "precond_rank": args.precond_rank if args.solver == "cg" else None,
                "n_train": int(res.state.carry_v.shape[0]),
                "num_probes": args.probes, "steps": steps,
                "step_time_s": [float(t) for t in h["step_time_s"]],
-               "cg_iters": [int(i) for i in h["iters"]],
-               "cg_mvms": int(h["mvms"].sum()),
+               "iters": [int(i) for i in h["iters"]],
+               "epochs": [float(e) for e in h["epochs"]],
+               "res_y": [float(r) for r in h["res_y"]],
+               "res_z": [float(r) for r in h["res_z"]],
+               "host_syncs": int(h["host_syncs"].sum()),
+               "mvms": int(h["mvms"].sum()), "slabs": slabs,
+               "sgd_lr": run.cfg.solver.learning_rate
+               if args.solver == "sgd" else None,
+               "sgd_lr_grid": [{"lr": lr, "iters": t.iters,
+                                "res_sum": float(t.res_y) + float(t.res_z)}
+                               for lr, t in run.lr_trials],
                "eval_step": h["eval_step"].tolist(),
                "eval_mvms": h["eval_mvms"].tolist(),
                "eval_rmse": out["eval_rmse"], "eval_llh": out["eval_llh"],
@@ -517,19 +554,25 @@ def phase_train(torch, tiled) -> tuple:
                "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
                "peak_mem_bytes": peak, "checkpoints": ckpts}
         emit(rec)
-        fits[label] = (args, res)
+        fits[label] = (args, run)
         for k, want in expected.items():
             if launches[k] == 0 or launches[k] != want:
                 problems.append(f"{label}: {k} launches {launches[k]} != "
                                 f"expected {want}")
         values = [out["final_res_y"], out["final_res_z"], *out["eval_rmse"],
-                  *out["eval_llh"], *res.history["hypers"].ravel().tolist()]
+                  *out["eval_llh"], *h["hypers"].ravel().tolist()]
         if not all(math.isfinite(x) for x in values):
             problems.append(f"{label}: non-finite output")
         if evals != steps // args.eval_every:
             problems.append(f"{label}: {evals} evaluations")
         if args.ckpt_dir and ckpts != ["step_10.npz", "step_20.npz"]:
             problems.append(f"{label}: checkpoints {ckpts}")
+        if args.solver != "cg" and (
+                rec["n_train"] % (args.block_size if args.solver == "ap"
+                                  else args.batch_size)
+                or any(e > args.budget for e in rec["epochs"])):
+            problems.append(f"{label}: n_train {rec['n_train']} or epochs "
+                            f"{rec['epochs']} outside the budget")
     problems += _train_vs_cpu(torch)
     if problems:
         raise AssertionError("; ".join(problems))
@@ -537,57 +580,88 @@ def phase_train(torch, tiled) -> tuple:
 
 
 def _train_vs_cpu(torch) -> list:
-    """Three outer steps (pathwise, warm start, rank-100 preconditioner, 8
-    CG iterations each) on the card and on the CPU from one initial state,
-    carried to the card through a checkpoint: hyperparameters per step."""
+    """Three outer steps on the card and on the CPU from one initial state,
+    carried to the card through a checkpoint: hyperparameters per step,
+    for CG (pathwise, warm start, rank-100 preconditioner, 8 iterations),
+    AP (100-row blocks, 2 epochs) and SGD (50-row batches, 2 epochs, lr 5,
+    one block schedule handed to both)."""
+    import numpy as np
+
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-    from repro_torch.core.driver import fit
-    from repro_torch.core.outer import OuterConfig, init_outer_state
+    from repro_torch.core.outer import OuterConfig, init_outer_state, outer_step
     from repro_torch.data.synthetic import load_dataset
     from repro_torch.solvers import SolverConfig
 
-    cfg = OuterConfig(
-        estimator="pathwise", warm_start=True, num_probes=16,
-        num_rff_pairs=256, num_steps=3, backend="cuda",
-        solver=SolverConfig(tolerance=0.0, max_epochs=8, precond_rank=100))
     cpu = load_dataset("pol", max_n=667, device="cpu")
     gpu = load_dataset("pol", max_n=667, device="cuda")
-    state = init_outer_state(cfg, cpu.x_train,
-                             generator=torch.Generator().manual_seed(3))
-    ckpt = CKPT_DIR / "cpu_to_card"
-    save_checkpoint(str(ckpt), 0, state)
-    template = init_outer_state(
-        cfg, gpu.x_train, generator=torch.Generator(device="cuda").manual_seed(3))
-    on_card, _ = restore_checkpoint(str(ckpt), template)
-    a = fit(cpu.x_train, cpu.y_train, cfg, state=state).history["hypers"]
-    b = fit(gpu.x_train, gpu.y_train, cfg, state=on_card).history["hypers"]
-    errs = [float(abs(b[i] - a[i]).max() / abs(a[i]).max())
-            for i in range(len(a))]
-    ok = len(a) == len(b) == 3 and all(e <= TOL_TRAIN_VS_CPU for e in errs)
-    emit({"phase": "train", "run": "small_card_vs_cpu",
-          "n_train": int(cpu.x_train.shape[0]), "rel_err_per_step": errs,
-          "tol_rel": TOL_TRAIN_VS_CPU, "ok": ok})
-    return [] if ok else [f"card vs CPU trajectory: {errs}"]
+    n = cpu.x_train.shape[0]  # 600: a multiple of both blocks
+    solvers = {
+        "": SolverConfig(tolerance=0.0, max_epochs=8, precond_rank=100),
+        "_ap": SolverConfig(name="ap", tolerance=0.0, max_epochs=2,
+                            block_size=100),
+        "_sgd": SolverConfig(name="sgd", tolerance=0.0, max_epochs=2,
+                             batch_size=50, learning_rate=5.0),
+    }
+    problems = []
+    for suffix, scfg in solvers.items():
+        cfg = OuterConfig(estimator="pathwise", warm_start=True, num_probes=16,
+                          num_rff_pairs=256, num_steps=3, backend="cuda",
+                          solver=scfg)
+        state = init_outer_state(cfg, cpu.x_train,
+                                 generator=torch.Generator().manual_seed(3))
+        ckpt = CKPT_DIR / f"cpu_to_card{suffix}"
+        save_checkpoint(str(ckpt), 0, state)
+        template = init_outer_state(
+            cfg, gpu.x_train,
+            generator=torch.Generator(device="cuda").manual_seed(3))
+        on_card, _ = restore_checkpoint(str(ckpt), template)
+        rng = np.random.default_rng(4)
+        schedules = [rng.integers(0, n // scfg.batch_size, size=24).tolist()
+                     for _ in range(3)]
+        hypers = []
+        for st, ds in ((state, cpu), (on_card, gpu)):
+            per_step = []
+            for step in range(3):
+                st, m = outer_step(st, ds.x_train, ds.y_train, cfg,
+                                   batch_idx=schedules[step])
+                per_step.append(m["hypers"])
+            hypers.append(per_step)
+        a, b = hypers
+        errs = [float(abs(b[i] - a[i]).max() / abs(a[i]).max())
+                for i in range(3)]
+        ok = all(e <= TOL_TRAIN_VS_CPU for e in errs)
+        emit({"phase": "train", "run": f"small_card_vs_cpu{suffix}",
+              "solver": scfg.name, "n_train": n, "rel_err_per_step": errs,
+              "tol_rel": TOL_TRAIN_VS_CPU, "ok": ok})
+        if not ok:
+            problems.append(f"card vs CPU trajectory ({scfg.name}): {errs}")
+    return problems
 
 
-def phase_profile(torch, args, res) -> dict:
-    """Where one outer step of train run (a) goes: the preconditioner build,
-    the CG solve and the gradient timed apart (host clock + synchronise),
-    then one outer step under ``torch.profiler`` for the device's busy
-    share and its top kernels."""
+def phase_profile(torch, label, args, run) -> dict:
+    """Where one more outer step of a train run goes: the solve's setup (CG:
+    the preconditioner build; AP: the block Cholesky factors), the solve and
+    the gradient timed apart (host clock + synchronise), with the solve's
+    wall time per iteration; then one outer step under ``torch.profiler``
+    for the device's busy share, its time per solver iteration and its top
+    kernels."""
     from repro_torch.core.estimators import build_system_targets
     from repro_torch.core.gradients import mll_grad_estimate
     from repro_torch.core.outer import outer_step
-    from repro_torch.data.synthetic import load_dataset
-    from repro_torch.launch.train import build_config
+    from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
     from repro_torch.solvers import HOperator
+    from repro_torch.solvers.ap import solve_ap
     from repro_torch.solvers.cg import solve_cg
     from repro_torch.solvers.precond import build_preconditioner
+    from repro_torch.solvers.sgd import solve_sgd
 
-    cfg = build_config(args)
-    state = res.state
+    cfg, state, scfg = run.cfg, run.fit.state, run.cfg.solver
     ds = load_dataset(args.dataset, max_n=args.max_n, device="cuda")
     x, y = ds.x_train, ds.y_train
+    if scfg.name != "cg":
+        x, y, _ = pad_to_block_multiple(
+            x, y, scfg.block_size if scfg.name == "ap" else scfg.batch_size)
+    gen = torch.Generator(device="cuda").manual_seed(5)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -600,10 +674,20 @@ def phase_profile(torch, args, res) -> dict:
         targets = build_system_targets(state.probes, x, y, state.params)
         op = HOperator(x=x, params=state.params, backend=cfg.backend,
                        bm=cfg.bm, bn=cfg.bn)
-        pc, precond_s = timed(lambda: build_preconditioner(
-            op, cfg.solver.precond_rank))
-        sol, solve_s = timed(lambda: solve_cg(op, targets, state.carry_v,
-                                              cfg.solver, precond=pc))
+        if scfg.name == "cg":
+            setup, setup_s = timed(lambda: build_preconditioner(
+                op, scfg.precond_rank))
+            sol, solve_s = timed(lambda: solve_cg(op, targets, state.carry_v,
+                                                  scfg, precond=setup))
+        elif scfg.name == "ap":
+            setup, setup_s = timed(lambda: op.all_block_cholesky(
+                scfg.block_size))
+            sol, solve_s = timed(lambda: solve_ap(op, targets, state.carry_v,
+                                                  scfg, block_chols=setup))
+        else:
+            setup_s = 0.0
+            sol, solve_s = timed(lambda: solve_sgd(op, targets, state.carry_v,
+                                                   scfg, generator=gen))
     _, grad_s = timed(lambda: mll_grad_estimate(
         x, y, state.params, sol.v, targets, cfg.estimator, bm=cfg.bm,
         bn=cfg.bn, backend=cfg.backend))
@@ -612,19 +696,25 @@ def phase_profile(torch, args, res) -> dict:
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        outer_step(state, x, y, cfg)
+        _, m = outer_step(state, x, y, cfg, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    rec = {"phase": "profile", "run": "a_pathwise_warm",
-           "cg_iters": sol.iters, "precond_build_s": precond_s,
-           "cg_solve_s": solve_s, "grad_s": grad_s,
-           "window": "1 outer step", "window_wall_s": wall,
+    rec = {"phase": "profile", "run": label, "solver": scfg.name,
+           "iters": sol.iters, "setup": {"cg": "precond_build", "ap":
+                                         "block_cholesky", "sgd": None}[scfg.name],
+           "setup_s": setup_s, "solve_s": solve_s,
+           "solve_s_per_iter": solve_s / max(sol.iters, 1),
+           "host_syncs": sol.host_syncs, "grad_s": grad_s,
+           "window": "1 outer step", "window_iters": m["iters"],
+           "window_wall_s": wall,
            "device_kernel_launches": sum(e.count for e in kernels),
            "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
+           "device_busy_s_per_iter": busy_us / 1e6 / max(m["iters"], 1)
+           if busy_us else "not measured",
            "device_idle_share": 1.0 - busy_us / 1e6 / wall if busy_us
            else "not measured",
            "top_kernels": [{"name": e.key[:80], "calls": e.count,
@@ -728,7 +818,9 @@ def main() -> int:
     try:
         launches, fits = phase_train(torch, tiled)
         path_launches.append(launches)
-        phase_profile(torch, *fits["a_pathwise_warm"])
+        for label in ("a_pathwise_warm", "c_ap_pathwise_warm_budget10",
+                      "d_sgd_pathwise_warm_budget10"):
+            phase_profile(torch, label, *fits[label])
     except Exception:
         traceback.print_exc()
         failures.append("train")

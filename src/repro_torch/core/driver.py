@@ -1,17 +1,17 @@
-"""The fit loop with evaluation and checkpoints; port of the single-lane part
-of ``repro.core.driver``.
+"""The fit loop with evaluation and checkpoints, and the SGD learning-rate
+grid; port of the single-lane part of ``repro.core.driver``.
 
 Runs ``cfg.num_steps`` outer steps one at a time, keeps the per-step
 history, evaluates on ``(x_test, y_test)`` every ``eval_every`` steps and
 checkpoints every ``ckpt_every`` steps and at the end, with the reference's
-restart semantics. The budget policy, lanes, the SGD learning-rate search
-and the initialisation heuristic arrive with later slices.
+restart semantics. The budget policy, lanes and the initialisation
+heuristic arrive with later slices.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +38,17 @@ from repro_torch.core.outer import (
 from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.solvers import HOperator, solve
+from repro_torch.solvers.base import max_iters_from_epochs
+from repro_torch.solvers.sgd import draw_schedule
+
+SGD_LR_GRID = [5.0, 10.0, 20.0, 30.0, 50.0, 60.0, 70.0, 80.0, 90.0, 100.0]
+
+# Divergence cut-off of the SGD learning-rate grid (paper Appendix B: "the
+# largest learning rate which does not cause divergence"). Systems are
+# normalised to ||b~|| = 1, so a cold-started probe solve begins at relative
+# residual ~1 per family; res_y + res_z above 2 + 2 after the probe epochs
+# means both families grew past twice their start.
+SGD_DIVERGENCE_THRESHOLD = 4.0
 
 HISTORY_KEYS = ("res_y", "res_z", "iters", "epochs", "mvms", "host_syncs",
                 "hypers", "grad_norm", "data_fit", "step_time_s")
@@ -76,8 +87,9 @@ def fit(
     """Run ``cfg.num_steps`` outer MLL steps with optional eval/checkpoints.
 
     ``generator`` draws the probes of a fresh state, the fresh probes of
-    every step without warm starting, and the standard estimator's eval
-    probes (a generator on ``x``'s device seeded with 0 when None).
+    every step without warm starting, SGD's batch schedules and the standard
+    estimator's eval probes (a generator on ``x``'s device seeded with 0
+    when None).
     ``state`` starts from a given state instead (e.g. the reference's
     initial state carried across by :mod:`repro_torch.interop`).
 
@@ -136,6 +148,63 @@ def fit(
                      wall_time_s=time.perf_counter() - t0)
 
 
+def pick_sgd_learning_rate(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    params: HyperParams,
+    cfg: OuterConfig,
+    generator: Optional[torch.Generator] = None,
+    probes: Optional[ProbeState] = None,
+    batch_idx: Optional[Sequence[int]] = None,
+    grid=None,
+    probe_epochs: float = 3.0,
+    halve: bool = False,
+    divergence_threshold: float = SGD_DIVERGENCE_THRESHOLD,
+    trials: Optional[list] = None,
+) -> float:
+    """Paper protocol: the largest grid lr whose first-step solve does not
+    diverge; ``halve=True`` returns half of it (the large-dataset rule).
+
+    The grid is swept in ascending order; each lr solves the first step's
+    system cold for ``probe_epochs`` epochs with the freeze on divergence
+    off, and "diverged" reads the FINAL ``res_y + res_z``: non-finite or
+    above ``divergence_threshold``. The sweep stops at the first lr that
+    diverges. Every lr sees the same probes and the same batch schedule
+    (the reference reuses one key): ``probes`` and ``batch_idx`` when
+    given, else drawn from ``generator``. ``trials``, when given, receives
+    ``(lr, SolveResult)`` for each solve run.
+    """
+    grid = sorted(grid or SGD_LR_GRID)
+    n, d = x.shape
+    kind = effective_kind(cfg, params)
+    if probes is None:
+        probes = init_probes(generator, cfg.estimator, n, d, cfg.num_probes,
+                             cfg.num_rff_pairs, kind=kind, dtype=x.dtype,
+                             device=x.device)
+    base = replace(cfg.solver, name="sgd", max_epochs=probe_epochs, kind=kind,
+                   divergence_threshold=float("inf"))
+    if batch_idx is None:
+        nb = n // base.batch_size
+        batch_idx = draw_schedule(
+            generator, nb, max_iters_from_epochs(probe_epochs, float(nb)))
+    with torch.no_grad():
+        targets = build_system_targets(probes, x, y, params)
+        op = HOperator(x=x, params=params, kind=kind, backend=cfg.backend,
+                       bm=cfg.bm, bn=cfg.bn)
+        best = grid[0]
+        for lr in grid:
+            res = solve(op, targets, None, replace(base, learning_rate=lr),
+                        batch_idx=batch_idx)
+            if trials is not None:
+                trials.append((lr, res))
+            r = float(res.res_y) + float(res.res_z)
+            if np.isfinite(r) and r < divergence_threshold:
+                best = lr
+            else:
+                break
+    return best / 2.0 if halve else best
+
+
 def evaluate(
     x: torch.Tensor,
     state: OuterState,
@@ -144,14 +213,15 @@ def evaluate(
     y_test: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     eval_probes: Optional[ProbeState] = None,
+    batch_idx: Optional[Sequence[int]] = None,
 ) -> dict:
     """Test RMSE / mean predictive LLH, and the H MVMs the eval solves took.
 
     Pathwise estimator: zero extra solves (eq. 16) from the current carry.
     Standard estimator: the s pathwise eval solves the paper charges to the
     standard path (Fig. 1), from zero, with eval probes drawn from
-    ``generator`` unless given (``eval_probes``); ``v_y`` comes from the
-    carry.
+    ``generator`` unless given (``eval_probes``), and SGD's schedule from
+    it unless given (``batch_idx``); ``v_y`` comes from the carry.
     """
     kind = effective_kind(cfg, state.params)
     with torch.no_grad():
@@ -171,7 +241,8 @@ def evaluate(
                            backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
             scfg = (cfg.solver if cfg.solver.kind == kind
                     else replace(cfg.solver, kind=kind))
-            res = solve(op, targets[:, 1:], None, scfg)
+            res = solve(op, targets[:, 1:], None, scfg, batch_idx=batch_idx,
+                        generator=generator)
             v = torch.cat([state.carry_v[:, :1], res.v], dim=1)
             probes, mvms = eval_probes, res.mvms
         pred = pathwise_predict(x, x_test, v, probes, state.params, kind=kind)

@@ -5,13 +5,14 @@ build targets -> warm start from the carry -> inner solve -> gradient
 assembly -> Adam ascent -> new carry. The reference's ``outer_scan`` is a
 Python loop here (:func:`repro_torch.core.driver.fit`). Without warm
 starting, each step draws fresh probes from the fit's ``torch.Generator``
-(or takes them as given) and solves from zero. Lanes, the adaptive budget
+(or takes them as given) and solves from zero. SGD's batch schedule comes
+from the same generator unless handed over. Lanes, the adaptive budget
 policy and ``extend_state`` arrive with later slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -94,13 +95,17 @@ def init_outer_state(
 
 def outer_step(state: OuterState, x: torch.Tensor, y: torch.Tensor,
                cfg: OuterConfig, generator: Optional[torch.Generator] = None,
-               probes: Optional[ProbeState] = None) -> tuple[OuterState, dict]:
+               probes: Optional[ProbeState] = None,
+               batch_idx: Optional[Sequence[int]] = None
+               ) -> tuple[OuterState, dict]:
     """One outer MLL step: solve -> gradient -> Adam -> carry.
 
     With ``cfg.warm_start`` the probes of ``state`` are kept and the solve
     starts from the carry. Without it the step solves from zero with fresh
     probes: ``probes`` when given (how a test hands over the reference's
-    per-step draws), else drawn from ``generator``.
+    per-step draws), else drawn from ``generator``. SGD's block schedule is
+    ``batch_idx`` when given (the reference's ``ksolve`` draws), else drawn
+    from ``generator`` after the probes.
     """
     kind = effective_kind(cfg, state.params)
     if cfg.warm_start:
@@ -115,7 +120,8 @@ def outer_step(state: OuterState, x: torch.Tensor, y: torch.Tensor,
                        backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
         scfg = (cfg.solver if cfg.solver.kind == kind
                 else replace(cfg.solver, kind=kind))
-        res = solve(op, targets, v0, scfg)
+        res = solve(op, targets, v0, scfg, batch_idx=batch_idx,
+                    generator=generator)
 
     grads, aux = mll_grad_estimate(
         x, y, state.params, res.v, targets, cfg.estimator,

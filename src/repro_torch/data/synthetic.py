@@ -118,3 +118,24 @@ def load_dataset(
 
     return Dataset(x_train=put(xtr), y_train=put(ytr[:, 0]),
                    x_test=put(xte), y_test=put(yte[:, 0]), name=name)
+
+
+def pad_to_block_multiple(x: torch.Tensor, y: torch.Tensor, block: int,
+                          far: float = 1e6
+                          ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Pad (x, y) so n is a multiple of ``block``; returns
+    (x_pad, y_pad, n_real), on ``x``'s device.
+
+    Phantom points sit at ``far * (1 + k)`` in every coordinate with y = 0,
+    so their kernel against every other point is exactly zero: H is block
+    diagonal between the real and phantom sets, and the real rows' solution
+    does not see them (the reference's padding).
+    """
+    n, d = x.shape
+    rem = (-n) % block
+    if rem == 0:
+        return x, y, n
+    offsets = far * (1.0 + torch.arange(rem, dtype=x.dtype, device=x.device))
+    x_pad = torch.cat([x, offsets[:, None].expand(rem, d)])
+    y_pad = torch.cat([y, torch.zeros((rem,), dtype=y.dtype, device=y.device)])
+    return x_pad, y_pad, n

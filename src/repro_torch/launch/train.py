@@ -3,40 +3,56 @@
     python -m repro_torch.launch.train --arch gp-iterative --dataset pol \\
         --pathwise --warm-start --steps 20 --eval-every 10
 
+    python -m repro_torch.launch.train --solver ap --pathwise --warm-start \
+        --budget 10 --max-n 0
+
 Fits the dataset with CG (rank ``--precond-rank`` pivoted-Cholesky
-preconditioner), the standard or pathwise estimator, warm-started or not,
-and Adam, with evaluation every ``--eval-every`` steps and checkpoints in
-``--ckpt-dir``; prints the reference's JSON summary (and writes it to
-``--out``). ``--device`` defaults to ``cuda`` and fails without a card;
-``--device cpu`` runs the plain PyTorch versions. ``--max-n 0`` trains on
-the full dataset. The AP and SGD solvers and the LM architectures are not
-ported yet and raise.
+preconditioner), AP (``--block-size``) or SGD (``--batch-size``, learning
+rate ``--sgd-lr``, or the paper's grid when it is 0), the standard or
+pathwise estimator, warm-started or not, and Adam, with evaluation every
+``--eval-every`` steps and checkpoints in ``--ckpt-dir``; prints the
+reference's JSON summary (and writes it to ``--out``). For AP and SGD the
+training rows are padded with phantom points to a multiple of the block.
+``--device`` defaults to ``cuda`` and fails without a card; ``--device
+cpu`` runs the plain PyTorch versions. ``--max-n 0`` trains on the full
+dataset. The LM architectures are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+from dataclasses import replace
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.driver import FitResult, fit
+from repro_torch.core.driver import FitResult, fit, pick_sgd_learning_rate
 from repro_torch.core.outer import OuterConfig
-from repro_torch.data.synthetic import load_dataset
+from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
+from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.solvers import SolverConfig
 from repro_torch.train.adam import AdamConfig
 
 
+class GPRun(NamedTuple):
+    """What :func:`run_gp` returns."""
+
+    summary: dict  # the reference's JSON summary
+    fit: FitResult
+    cfg: OuterConfig  # the config the fit ran (the SGD lr the grid chose)
+    # (lr, SolveResult) of each SGD learning-rate grid solve; empty unless
+    # the grid ran (``--solver sgd --sgd-lr 0``).
+    lr_trials: list
+
+
 def build_config(args) -> OuterConfig:
     """The `OuterConfig` the CLI flags describe (as the reference's)."""
-    if args.solver in ("ap", "sgd"):
-        raise NotImplementedError(
-            f"--solver {args.solver} is not ported yet (ROADMAP Queue 1, "
-            "AP/SGD slice); use --solver cg")
     solver = SolverConfig(
         name=args.solver, tolerance=args.tolerance,
         max_epochs=args.budget if args.budget > 0 else 1e9,
-        precond_rank=args.precond_rank)
+        precond_rank=args.precond_rank, block_size=args.block_size,
+        batch_size=args.batch_size, learning_rate=args.sgd_lr)
     return OuterConfig(
         estimator="pathwise" if args.pathwise else "standard",
         warm_start=args.warm_start, num_probes=args.probes, solver=solver,
@@ -44,12 +60,24 @@ def build_config(args) -> OuterConfig:
         backend=args.backend, bm=args.tile, bn=args.tile)
 
 
-def run_gp(args) -> tuple[dict, FitResult]:
-    """Load the dataset, fit it, and return (the JSON summary, the fit)."""
+def run_gp(args) -> GPRun:
+    """Load the dataset (padded to the block for AP and SGD), pick the SGD
+    learning rate when asked, fit, and print the JSON summary."""
     cfg = build_config(args)
     ds = load_dataset(args.dataset, max_n=args.max_n, device=args.device)
-    gen = torch.Generator(device=ds.x_train.device).manual_seed(args.seed)
-    res = fit(ds.x_train, ds.y_train, cfg, generator=gen,
+    x, y = ds.x_train, ds.y_train
+    if args.solver in ("ap", "sgd"):
+        block = args.block_size if args.solver == "ap" else args.batch_size
+        x, y, _ = pad_to_block_multiple(x, y, block)
+    gen = torch.Generator(device=x.device).manual_seed(args.seed)
+    trials = []
+    if args.solver == "sgd" and args.sgd_lr <= 0:
+        lr = pick_sgd_learning_rate(
+            x, y, HyperParams.create(x.shape[1], device=x.device), cfg,
+            generator=gen, trials=trials)
+        print(f"[train] sgd lr grid -> {lr}", flush=True)
+        cfg = replace(cfg, solver=replace(cfg.solver, learning_rate=lr))
+    res = fit(x, y, cfg, generator=gen,
               x_test=ds.x_test, y_test=ds.y_test, eval_every=args.eval_every,
               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
               verbose=True)
@@ -71,7 +99,7 @@ def run_gp(args) -> tuple[dict, FitResult]:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=2)
-    return out, res
+    return GPRun(summary=out, fit=res, cfg=cfg, lr_trials=trials)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -19,6 +19,8 @@ from repro_torch.solvers.base import (
     SolveResult,
     SolverConfig,
     denormalise,
+    history_init,
+    history_record,
     max_iters_from_epochs,
     normalise_system,
     not_converged,
@@ -57,6 +59,7 @@ def solve_cg(
         precond = build_preconditioner(op, cfg.precond_rank)
     sysn = normalise_system(b, v0)
     max_iters = max_iters_from_epochs(cfg.max_epochs, 1.0)
+    hist = history_init(cfg, dtype=b.dtype, device=b.device)
 
     v = sysn.v0
     r = sysn.b - op.mvm(v)
@@ -78,8 +81,10 @@ def solve_cg(
         d = p + _guarded_div(gamma_new, gamma) * d
         gamma = gamma_new
         res_y, res_z = residual_norms(r)
+        history_record(hist, t, res_y, res_z)
         t += 1
     return SolveResult(
         v=denormalise(v, sysn.scale), res_y=res_y, res_z=res_z,
         iters=t, epochs=float(t), mvms=mvms, host_syncs=syncs,
+        res_history=hist,
     )

@@ -5,8 +5,8 @@ card and PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The forward and backward kernels (and the backward's fused call) are held
-to their plain versions, and the hyper-gradient through the kernel pair on
-the card to the same function on the CPU."""
+to their plain versions, and the hyper-gradient through the kernel pair and
+the AP and SGD solves on the card to the same functions on the CPU."""
 import numpy as np
 import pytest
 
@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.gradients import mll_grad_estimate  # noqa: E402
 from repro_torch.gp.hyperparams import HyperParams  # noqa: E402
 from repro_torch.kernels import tiled  # noqa: E402
+from repro_torch.solvers import HOperator, SolverConfig, solve  # noqa: E402
 
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 
@@ -38,9 +39,11 @@ def _cuda_or_skip():
 
 # Forward kernel shapes (n, m, d, s): short and long row counts against
 # the full pol column range and a ragged one, m < 64 and m = 0, one column,
-# the path's 65 and two s-chunks (129), d = 5 and 26, and d = 90 (one tile
-# buffer: two do not fit in shared memory beyond d = 52).
+# the path's 65 and two s-chunks (129), d = 5 and 26, d = 90 (one tile
+# buffer: two do not fit in shared memory beyond d = 52), and the padded
+# pol slabs of AP (13000 x 1000 columns) and SGD (500 x 12500).
 FWD_SHAPES = [
+    (13000, 1000, 26, 65), (500, 12500, 26, 65),
     (1, 12150, 26, 65), (16, 12150, 26, 65), (64, 12150, 26, 65),
     (300, 12150, 26, 65), (1, 277, 26, 65), (16, 277, 26, 65),
     (64, 277, 26, 65), (300, 277, 26, 65), (300, 50, 26, 65),
@@ -283,3 +286,27 @@ def test_cuda_unit_mvm_grads_same_input_match_cpu(kind):
     assert tiled.LAUNCHES[tiled.BWD_KERNEL_NAME] == 1
     for a, b in zip(card, grads("cpu")):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ap", "sgd"])
+def test_cuda_ap_sgd_solve_matches_cpu(name):
+    """On a card: AP (3 epochs of 64-row blocks) and SGD (3 epochs of
+    64-row batches, one schedule handed to both) through the forward
+    kernel's slabs vs the same solve on the CPU: equal iteration counts,
+    solutions within 1e-4 of the largest entry."""
+    _cuda_or_skip()
+    x, b = _draws(15, (512, 5), (512, 9))
+    tp = _params(5, 16, "matern32")
+    sched = np.random.default_rng(17).integers(0, 8, size=24).tolist()
+    cfg = SolverConfig(name=name, tolerance=0.0, max_epochs=3, block_size=64,
+                       batch_size=64, learning_rate=5.0)
+    cpu = solve(HOperator(torch.tensor(x), tp, backend="cuda"),
+                torch.tensor(b), None, cfg, batch_idx=sched)
+    card = solve(HOperator(torch.tensor(x, device="cuda"),
+                           tp.with_leaves([p.cuda() for p in tp.leaves]),
+                           backend="cuda"),
+                 torch.tensor(b, device="cuda"), None, cfg, batch_idx=sched)
+    assert card.iters == cpu.iters == 24
+    scale = cpu.v.abs().max().item()
+    assert (card.v.cpu() - cpu.v).abs().max().item() <= 1e-4 * scale

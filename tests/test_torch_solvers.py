@@ -23,7 +23,6 @@ from repro_torch.core.estimators import ProbeState, build_system_targets  # noqa
 from repro_torch.core.gradients import mll_grad_estimate  # noqa: E402
 from repro_torch.gp import hyperparams as thp  # noqa: E402
 from repro_torch.gp.rff import RFFState, prior_sample_at  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.solvers import HOperator, SolverConfig, solve  # noqa: E402
 from repro_torch.solvers.cg import solve_cg  # noqa: E402
 from repro_torch.train import adam as tadam  # noqa: E402
@@ -166,17 +165,20 @@ def test_cg_to_tolerance_matches_reference():
 
 
 def test_unported_solver_paths_raise():
-    """AP and SGD wait for their slice: the solver dispatch and the train
-    CLI's ``--solver sgd`` both raise and name it. (Rank-100 pivoted
-    Cholesky is ported; tests/test_torch_train.py holds it to the
-    reference.)"""
+    """The solver dispatch runs every ported solver (CG, AP, SGD; AP and
+    SGD are held to the reference in tests/test_torch_ap_sgd.py) and
+    raises ``ValueError`` for a solver it does not know."""
     x, b, _ = _problem(n=16)
     _, tp = _params(3)
     op = HOperator(torch.tensor(x), tp)
-    with pytest.raises(NotImplementedError, match="AP/SGD"):
-        solve(op, torch.tensor(b), None, SolverConfig(name="ap"))
-    with pytest.raises(NotImplementedError, match="AP/SGD slice"):
-        ttrain.main(["--device", "cpu", "--solver", "sgd", "--max-n", "50"])
+    for name in ("cg", "ap", "sgd"):
+        cfg = SolverConfig(name=name, max_epochs=2, block_size=8,
+                           batch_size=8, learning_rate=1.0, precond_rank=0)
+        res = solve(op, torch.tensor(b), None, cfg,
+                    generator=torch.Generator().manual_seed(0))
+        assert res.iters > 0 and torch.isfinite(res.v).all(), name
+    with pytest.raises(ValueError, match="unknown solver"):
+        solve(op, torch.tensor(b), None, SolverConfig(name="lbfgs"))
 
 
 @pytest.mark.parametrize("estimator", ["pathwise", "standard"])

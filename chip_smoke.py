@@ -15,15 +15,21 @@ Phases, each printing JSON lines:
    row slab 500 x 12500 of padded pol), each with its column split count,
    the bound as the kernel splits the work between CUDA cores and tensor
    cores and the all-fp32 bound of the earlier design, and two launches
-   bitwise equal; and one ragged shape, checked only. The build fails the
-   smoke if any instantiation of either kernel spills registers. Backward:
-   the fused call of the GP gradient (u = w, operands [g | v] and [v | g],
-   s' = 130) at the CG shape, timed, with two launches bitwise equal; the
-   CG shape with g != v (the standard estimator's roles, timed) and with
-   u = w, g = v (pathwise); and the ragged shape; each with its column
-   split count and the bound split as for the forward kernel. Then the
-   gradient of ``mll_grad_estimate`` through the kernel pair against
-   autograd through the plain tiled MVM at n = 2000, for both estimators.
+   bitwise equal; one ragged shape, checked only; and, timed for
+   Matérn-3/2, AP's column slabs at full 3droad (353000 x 1000, d=3, s=33)
+   and full song (418000 x 1000, d=90, s=65) and the wide path for large
+   d (8192 x 8192 at d=120 and 200). The build fails the smoke if any
+   instantiation of either kernel spills registers. Backward: the fused
+   call of the GP gradient (u = w, operands [g | v] and [v | g], s' = 130)
+   at the CG shape, timed, with two launches bitwise equal; the CG shape
+   with g != v (the standard estimator's roles, timed) and with u = w,
+   g = v (pathwise); the ragged shape; and, timed for Matérn-3/2, the
+   fused call at s' = 272 (two launches over column chunks), on 16 384
+   rows of song (d=90) and buzz (d=77), and on the wide path (d=120, 200);
+   each with its column split count and the bound split as for the
+   forward kernel. Then the gradient of ``mll_grad_estimate`` through the
+   kernel pair against autograd through the plain tiled MVM at n = 2000,
+   for both estimators.
 3. serve: the port's serve entry point (``repro_torch.launch.serve``) at the
    paper's full pol size, gp-iterative widths (64 probes, 1000 RFF pairs,
    Matérn-3/2), CG to 0.01 within 100 epochs, 10 outer steps, then 20
@@ -47,6 +53,19 @@ Phases, each printing JSON lines:
    solve's setup (preconditioner or block Cholesky), the solve (and its time
    per iteration) and the gradient, and one outer step of each under
    ``torch.profiler`` (device busy share, top kernels).
+6. large: run (e), ``examples/torch_budget_large_scale.py`` at full 3droad
+   (352 248 rows padded to 353 000, d = 3): the initialisation heuristic at
+   the paper's defaults, then AP (1000-row blocks, 3 epochs per step, 32
+   probes, pathwise) cold and warm, 5 steps each, eval at the last; per
+   step iterations, epochs, residuals and time, launch counts, peak
+   memory, and a profiled step of the warm run.
+7. large_steps: one AP step through the train CLI at full song, buzz and
+   houseelectric (1 659 916 rows), budget 1 epoch, 64 probes: setup and
+   step seconds, the step split into targets, block Cholesky, the initial
+   residual's full MVM, the column slabs, the rest of the solve and the
+   gradient (host clock between device synchronises), launch counts and
+   peak memory; then the peak memory of the row-chunked RFF prior sample
+   against the unchunked one at pol and houseelectric.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -55,6 +74,7 @@ any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -91,6 +111,10 @@ TOL_GRAD = 1e-4
 TOL_TRAIN_VS_CPU = 1e-4
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# Run (e)'s outer steps per start mode, and the datasets of the single
+# large-dataset steps.
+LARGE_RUN_STEPS = 5
+LARGE_STEP_DATASETS = ("song", "buzz", "houseelectric")
 CG_SHAPE = (12150, 12150, 26, 65)
 PREDICT_SHAPE = (64, 12150, 26, 65)
 BUCKET16_SHAPE = (16, 12150, 26, 65)  # the engine's smallest bucket
@@ -101,14 +125,30 @@ SGD_SLAB_SHAPE = (500, 12150, 26, 65)  # an SGD batch's row slab
 AP_COL_SLAB_SHAPE = (13000, 1000, 26, 65)
 SGD_SLAB_PADDED_SHAPE = (500, 12500, 26, 65)
 RAGGED_SHAPE = (1001, 777, 7, 9)
-# Forward kernel: (label, shape, timed).
-FWD_SHAPES = (("cg", CG_SHAPE, True), ("predict", PREDICT_SHAPE, True),
-              ("bucket16", BUCKET16_SHAPE, True),
-              ("sgd_slab", SGD_SLAB_SHAPE, True),
-              ("ap_col_slab", AP_COL_SLAB_SHAPE, True),
-              ("sgd_slab_padded", SGD_SLAB_PADDED_SHAPE, True),
-              ("ragged", RAGGED_SHAPE, False))
+# The large-dataset path: AP's column slab at full 3droad (352 248 rows
+# padded to 353 000, 32 probes) and at full song (417 429 padded to
+# 418 000, 64 probes), and the forward kernel's wide path (d = 120, 200).
+AP_SLAB_3DROAD_SHAPE = (353000, 1000, 3, 33)
+AP_SLAB_SONG_SHAPE = (418000, 1000, 90, 65)
+WIDE_SHAPES = ((8192, 8192, 120, 65), (8192, 8192, 200, 65))
 KINDS = ("rbf", "matern12", "matern32", "matern52")
+# Forward kernel: (label, shape, kinds timed). The shapes of earlier PRs
+# are timed for every kind, the large-dataset ones for Matérn-3/2 only
+# (their plain versions take seconds); every shape is checked for all.
+FWD_SHAPES = (("cg", CG_SHAPE, KINDS), ("predict", PREDICT_SHAPE, KINDS),
+              ("bucket16", BUCKET16_SHAPE, KINDS),
+              ("sgd_slab", SGD_SLAB_SHAPE, KINDS),
+              ("ap_col_slab", AP_COL_SLAB_SHAPE, KINDS),
+              ("sgd_slab_padded", SGD_SLAB_PADDED_SHAPE, KINDS),
+              ("ragged", RAGGED_SHAPE, ()),
+              ("ap_col_slab_3droad", AP_SLAB_3DROAD_SHAPE, ("matern32",)),
+              ("ap_col_slab_song", AP_SLAB_SONG_SHAPE, ("matern32",)),
+              ("wide_d120", WIDE_SHAPES[0], ("matern32",)),
+              ("wide_d200", WIDE_SHAPES[1], ("matern32",)))
+# Backward kernel, the fused call on 16 384 training rows of song (d = 90)
+# and buzz (d = 77), pre-scaled by the generator's lengthscale 1.6 sqrt(d)
+# so the kernel's values spread over (0, 1].
+FUSED_SUBSET_ROWS = 16384
 
 
 def emit(obj: dict) -> None:
@@ -195,16 +235,22 @@ def bound_bwd(n: int, m: int, d: int, s: int, nbytes: int) -> dict:
 def phase_kernels(torch, tiled, registry) -> dict:
     """Kernel vs plain for every kind and shape; times, split counts and
     bounds at the path shapes; two launches on the split path bitwise
-    equal."""
+    equal. The large-dataset shapes draw u with r2 ~ 6 on average (scaled
+    by sqrt(3 / d)); their w is u (wide) or u's first block of rows (AP's
+    slab), so coincident points meet as on the path."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results, main_entry, by_shape = [], None, {}
     for label, (n, m, d, s), timed in FWD_SHAPES:
-        if label == "cg":
-            u = torch.randn((n, d), generator=gen, device="cuda")
+        large = label.startswith(("ap_col_slab_", "wide_"))
+        u = torch.randn((n, d), generator=gen, device="cuda")
+        if large:
+            u *= math.sqrt(3.0 / d)
+        if label == "cg" or label.startswith("wide_"):
             w = u  # H @ V: coincident points on the diagonal
+        elif large:
+            w = u[:m]
         else:
-            u = torch.randn((n, d), generator=gen, device="cuda")
             w = torch.randn((m, d), generator=gen, device="cuda")
         v = torch.randn((m, s), generator=gen, device="cuda")
         splits = tiled.split_plan(n, m, s, sms)
@@ -224,13 +270,14 @@ def phase_kernels(torch, tiled, registry) -> dict:
             bitwise = bool(torch.equal(out, again))
             rec = {"phase": "kernels", "shape": label, "n": n, "m": m, "d": d,
                    "s": s, "kind": kind, "splits": splits,
+                   "path": "wide" if tiled.fwd_wide(d, s) else "first",
                    "reference": "plain_f64" if kind == "matern12" else "plain_f32",
                    "max_abs_err": err, "max_abs_out": scale,
                    "rel_err": err / scale, "tol_rel": tol,
                    "two_launches_bitwise_equal": bitwise,
                    "ok": bool(math.isfinite(err) and err <= tol * scale
                               and bitwise)}
-            if timed:
+            if kind in timed:
                 kappa = registry.get_kernel(kind).kappa_from_r2
 
                 def library(u=u, w=w, v=v, kappa=kappa):
@@ -248,7 +295,7 @@ def phase_kernels(torch, tiled, registry) -> dict:
                 if kind == "matern32":
                     by_shape[label] = {k: rec[k] for k in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_unit", "bound_fp32_ms", "splits")}
+                        "bound_unit", "bound_fp32_ms", "splits", "path")}
             emit(rec)
             results.append(rec)
             if label == "cg" and kind == "matern32":
@@ -265,31 +312,62 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
     gradient at the CG shape (u = w, [g | v] and [v | g], s' = 130), the CG
     shape in the standard estimator's roles (w = u, g != v) and the
     pathwise ones (w = u, g = v), and the ragged shape; times at cg_fused
-    and cg_standard, two launches bitwise equal at cg_fused."""
+    and cg_standard, two launches bitwise equal at cg_fused. Then the
+    large-dataset and range shapes, timed for Matérn-3/2: the fused call at
+    s' = 272 (two launches), on 16 384 rows of song (d = 90) and buzz
+    (d = 77), and on the wide path (d = 120, 200)."""
+    from repro_torch.data.synthetic import load_dataset
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    def fused(label, u, g, v, timed):
+        """The fused call on (u, g, v); its plain operands; the bytes it
+        must move (u, g and v read once, du written once)."""
+        return (label,
+                lambda kind: tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind),
+                (u, u, torch.cat([g, v], dim=1), torch.cat([v, g], dim=1)),
+                timed, 4 * (2 * u.numel() + 2 * g.numel()),
+                len(tiled.bwd_s_chunks(u.shape[1], g.shape[1], fused=True)))
+
+    def rows(name):
+        """16 384 training rows of ``name``, pre-scaled by the generator's
+        lengthscale 1.6 sqrt(d)."""
+        x = load_dataset(name, max_n=18205, device="cuda").x_train
+        return (x[:FUSED_SUBSET_ROWS] / (1.6 * math.sqrt(x.shape[1]))).contiguous()
+
     n, m, d, s = CG_SHAPE
     u, g, v = rnd(n, d), rnd(n, s), rnd(m, s)
-    gv, vg = torch.cat([g, v], dim=1), torch.cat([v, g], dim=1)
     rn, rm, rd, rs = RAGGED_SHAPE
     ragged = (rnd(rn, rd), rnd(rm, rd), rnd(rn, rs), rnd(rm, rs))
-    # label: (kernel call, plain operands (u, w, g, v), timed)
-    cases = (
-        ("cg_fused", lambda kind: tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind),
-         (u, u, gv, vg), True),
+    standard_bytes = 4 * (n * d + n * s + m * s + n * d)
+    k = FUSED_SUBSET_ROWS
+    # label: (kernel call, plain operands (u, w, g, v), kinds timed, bytes,
+    # launches per call)
+    cases = [
+        fused("cg_fused", u, g, v, KINDS),
         ("cg_standard", lambda kind: tiled.kernel_mvm_bwd_cuda(u, u, g, v, kind),
-         (u, u, g, v), True),
+         (u, u, g, v), KINDS, standard_bytes, 1),
         ("cg_pathwise", lambda kind: tiled.kernel_mvm_bwd_cuda(u, u, g, g, kind),
-         (u, u, g, g), False),
+         (u, u, g, g), (), None, 1),
         ("ragged", lambda kind: tiled.kernel_mvm_bwd_cuda(*ragged, kind),
-         ragged, False),
-    )
+         ragged, (), None, 1),
+        # 135 probes at pol's width: s' = 272, two launches.
+        fused("cg_fused_s272", u, rnd(n, 136), rnd(n, 136), ("matern32",)),
+        fused("song_fused_16k", rows("song"), rnd(k, 65), rnd(k, 65),
+              ("matern32",)),
+        fused("buzz_fused_16k", rows("buzz"), rnd(k, 65), rnd(k, 65),
+              ("matern32",)),
+    ]
+    for wn, _, wd, ws in WIDE_SHAPES:
+        cases.append(fused(f"wide_d{wd}_fused",
+                           rnd(wn, wd) * math.sqrt(3.0 / wd), rnd(wn, ws),
+                           rnd(wn, ws), ("matern32",)))
     results, main_entry, by_shape = [], None, {}
-    for label, call, (a, b, c, e), timed in cases:
+    for label, call, (a, b, c, e), timed, nbytes, per_call in cases:
         splits = tiled.bwd_split_plan(a.shape[0], b.shape[0], sms)
         for kind in KINDS:
             out = call(kind)
@@ -308,13 +386,15 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
             rec = {"phase": "kernels_bwd", "shape": label,
                    "n": a.shape[0], "m": b.shape[0], "d": a.shape[1],
                    "s": c.shape[1], "kind": kind, "splits": splits,
+                   "path": "wide" if a.shape[1] > 96 else "first",
+                   "launches_per_call": per_call,
                    "reference": "plain_f64" if kind == "matern12" else "plain_f32",
                    "max_abs_err": err, "max_abs_out": scale,
                    "rel_err": err / scale, "tol_rel": tol,
                    "two_launches_bitwise_equal": bitwise,
                    "ok": bool(math.isfinite(err) and err <= tol * scale
                               and bitwise)}
-            if timed:
+            if kind in timed:
                 dkappa = registry.get_kernel(kind).dkappa_dr2
 
                 def library(a=a, b=b, c=c, e=e, dkappa=dkappa):
@@ -325,13 +405,6 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
                 rec["plain_ms"] = time_ms(
                     lambda: tiled.kernel_mvm_bwd_plain(a, b, c, e, kind), 2)
                 rec["library_ms"] = time_ms(library, 3)
-                # Bytes the function must move: its own inputs once (the
-                # fused call reads u, g and v; the concatenation is the
-                # kernel's), du once.
-                if label == "cg_fused":
-                    nbytes = 4 * (n * d + 2 * n * s + n * d)
-                else:
-                    nbytes = 4 * (n * d + n * s + m * s + n * d)
                 rec.update(bound_bwd(a.shape[0], b.shape[0], a.shape[1],
                                      c.shape[1], nbytes))
                 rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -339,7 +412,8 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
                 if kind == "matern32":
                     by_shape[label] = {k: rec[k] for k in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_unit", "bound_fp32_ms", "splits")}
+                        "bound_unit", "bound_fp32_ms", "splits", "path",
+                        "launches_per_call")}
             emit(rec)
             results.append(rec)
             if label == "cg_fused" and kind == "matern32":
@@ -405,7 +479,9 @@ def phase_serve(torch, tiled) -> tuple:
     steps = len(report["steps"])
     expected = report["cg_mvms"] + steps + report["engine_dispatches"]
     got = launches[tiled.KERNEL_NAME]
-    got_bwd, expected_bwd = launches[tiled.BWD_KERNEL_NAME], steps
+    got_bwd = launches[tiled.BWD_KERNEL_NAME]
+    expected_bwd = steps * len(tiled.bwd_s_chunks(
+        report["d"], report["num_probes"] + 1, fused=True))
     for st in report["steps"]:
         emit({"phase": "serve", **st})
     # Right answers: the served model on the card vs its plain version on
@@ -465,6 +541,22 @@ def phase_serve(torch, tiled) -> tuple:
     return summary, (launches, second_passes), run
 
 
+def expected_launches(tiled, h, solver, d, probes, grid=0) -> dict:
+    """The launches a fit's history accounts for. Forward: every full MVM,
+    every AP/SGD slab (one per iteration), the gradient's forward (1 per
+    step), each evaluation's cross-MVM and solves, and the SGD grid's
+    slabs and MVMs (``grid``). Backward: the gradient's fused call every
+    step, one launch per column chunk of (g, v) at width d."""
+    steps = len(h["iters"])
+    slabs = int(h["iters"].sum()) if solver != "cg" else 0
+    return {
+        tiled.KERNEL_NAME: int(h["mvms"].sum()) + slabs + steps
+        + int(h["eval_mvms"].sum()) + len(h["eval_step"]) + grid,
+        tiled.BWD_KERNEL_NAME: steps * len(
+            tiled.bwd_s_chunks(d, probes + 1, fused=True)),
+    }
+
+
 def _train_args(**over) -> SimpleNamespace:
     """The train CLI's flags at their defaults, with ``over`` applied."""
     from repro_torch.launch.train import build_parser
@@ -509,16 +601,10 @@ def phase_train(torch, tiled) -> tuple:
         out, res, h = run.summary, run.fit, run.fit.history
         steps = len(h["iters"])
         evals = len(h["eval_step"])
-        # Forward launches: every full MVM, every AP/SGD slab (one per
-        # iteration), the gradient's forward (1 per step), each evaluation's
-        # cross-MVM and solves, and the SGD grid's slabs and MVMs.
         slabs = int(h["iters"].sum()) if args.solver != "cg" else 0
-        grid = sum(t.iters + t.mvms for _, t in run.lr_trials)
-        expected = {
-            tiled.KERNEL_NAME: int(h["mvms"].sum()) + slabs + steps
-            + int(h["eval_mvms"].sum()) + evals + grid,
-            tiled.BWD_KERNEL_NAME: steps,
-        }
+        expected = expected_launches(
+            tiled, h, args.solver, res.state.params.raw_lengthscales.numel(),
+            args.probes, grid=sum(t.iters + t.mvms for _, t in run.lr_trials))
         for k in tiled.LAUNCHES:
             totals[k] += launches[k]
             second_totals[k] += second_passes[k]
@@ -724,6 +810,240 @@ def phase_profile(torch, label, args, run) -> dict:
     return rec
 
 
+def _example(name: str):
+    """A script of ``examples/`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_large(torch, tiled) -> tuple:
+    """Run (e): ``examples/torch_budget_large_scale.py`` at full 3droad
+    (352 248 training rows padded to 353 000, d = 3) with the paper's
+    heuristic (10 000-row subsets, 10 centroids, 30 steps), AP with
+    1000-row blocks, 3 epochs per step, 32 probes, pathwise, cold and then
+    warm start, :data:`LARGE_RUN_STEPS` steps each, eval at the last; the
+    launch counts set to 0 just before and read just after. Per start mode
+    and step: iterations, epochs, residuals and step time; the paper's
+    claim (warm res_z falls, cold stagnates) is printed, not gated."""
+    from repro_torch.data.synthetic import load_dataset
+
+    ex = _example("torch_budget_large_scale")
+    args = ex.build_parser().parse_args([
+        "--max-n", "0", "--block-size", "1000", "--subset-size", "10000",
+        "--num-centroids", "10", "--heuristic-steps", "30",
+        "--steps", str(LARGE_RUN_STEPS)])
+    t0 = time.perf_counter()
+    ds = load_dataset("3droad", max_n=0, device="cuda")
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tiled.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ex.run(ds, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tiled.launch_counts()
+    second_passes = dict(tiled.SECOND_PASSES)
+    peak = torch.cuda.max_memory_allocated()
+    n, d = out[True].state.carry_v.shape[0], ds.x_train.shape[1]
+    expected = dict.fromkeys(tiled.LAUNCHES, 0)
+    problems, res_z = [], {}
+    for warm in (False, True):
+        h = out[warm].history
+        for k, want in expected_launches(tiled, h, "ap", d, 32).items():
+            expected[k] += want
+        label = f"e_3droad_{'warm' if warm else 'cold'}"
+        res_z[warm] = [float(r) for r in h["res_z"]]
+        emit({"phase": "large", "run": label, "warm_start": warm,
+              "steps": len(h["iters"]),
+              "step_time_s": [float(t) for t in h["step_time_s"]],
+              "iters": [int(i) for i in h["iters"]],
+              "epochs": [float(e) for e in h["epochs"]],
+              "res_y": [float(r) for r in h["res_y"]], "res_z": res_z[warm],
+              "eval_rmse": h["eval_rmse"].tolist(),
+              "eval_llh": h["eval_llh"].tolist(),
+              "fit_wall_s": out[warm].wall_time_s})
+        values = [*h["res_y"], *h["res_z"], *h["eval_rmse"], *h["eval_llh"],
+                  *h["hypers"].ravel()]
+        if not all(math.isfinite(float(x)) for x in values):
+            problems.append(f"{label}: non-finite output")
+        if any(e > 3.0 for e in h["epochs"]) or len(h["eval_llh"]) != 1:
+            problems.append(f"{label}: epochs {h['epochs']} or evals")
+    init = out["init"]
+    rec = {"phase": "large", "run": "e_3droad", "n_train": ds.x_train.shape[0],
+           "n_padded": n, "d": d, "n_test": ds.x_test.shape[0],
+           "heuristic": {"lengthscales": init.lengthscales.tolist(),
+                         "signal": float(init.signal),
+                         "noise": float(init.noise)},
+           "data_s": data_s, "wall_s": wall,
+           "heuristic_s": wall - sum(out[w].wall_time_s for w in (False, True)),
+           "launches": launches, "expected_launches": expected,
+           "fwd_second_pass_calls": second_passes[tiled.KERNEL_NAME],
+           "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
+           "peak_mem_bytes": peak,
+           "res_z_cold_first_last": [res_z[False][0], res_z[False][-1]],
+           "res_z_warm_first_last": [res_z[True][0], res_z[True][-1]],
+           "warm_res_z_falls": res_z[True][-1] < res_z[True][0],
+           "warm_below_cold_at_last": res_z[True][-1] < res_z[False][-1]}
+    emit(rec)
+    for k, want in expected.items():
+        if launches[k] == 0 or launches[k] != want:
+            problems.append(f"e_3droad: {k} launches {launches[k]} != {want}")
+    if n % 1000 or not all(math.isfinite(x) for x in init.flat().tolist()):
+        problems.append(f"e_3droad: n {n} or heuristic {init.flat().tolist()}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return (launches, second_passes), (
+        SimpleNamespace(dataset="3droad", max_n=0),
+        SimpleNamespace(cfg=ex.config(args, True), fit=out[True]))
+
+
+def phase_rff_memory(torch) -> None:
+    """Peak device memory of the pathwise targets' prior sample, the
+    row-chunked ``prior_sample_at`` against the unchunked ``phi(x) @ w``
+    (its body before the chunking), at pol's 12 150 training rows and
+    houseelectric's 1 659 916 (d = 26 and 11, 1000 pairs, 64 samples), on
+    the same draws; the two within 1e-5 of the largest value."""
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.gp.rff import init_rff, prior_sample_at, rff_features
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, n, d in (("pol", 12150, 26), ("houseelectric", 1659916, 11)):
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        st = init_rff(gen, 1000, d, 64, device="cuda")
+        params = HyperParams.create(d, device="cuda")
+        rec = {"phase": "rff_memory", "dataset": name, "n": n, "d": d,
+               "pairs": 1000, "samples": 64}
+        outs = {}
+        for label, fn in (("chunked", prior_sample_at),
+                          ("unchunked", lambda a, b, c:
+                           rff_features(a, b, c) @ b.w)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[label] = fn(x, st, params)
+            torch.cuda.synchronize()
+            rec[f"{label}_s"] = time.perf_counter() - t0
+            rec[f"{label}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        err = (outs["chunked"] - outs["unchunked"]).abs().max().item()
+        rec["rel_err"] = err / outs["unchunked"].abs().max().item()
+        emit(rec)
+        del x, outs
+        if not rec["rel_err"] <= 1e-5:
+            raise AssertionError(f"rff chunking at {name}: {rec['rel_err']}")
+
+
+@contextlib.contextmanager
+def phase_timers(torch, seconds: dict):
+    """Host seconds of an outer step's phases, each taken between two
+    device synchronises, added into ``seconds``: the targets, the solve
+    (with, inside it, the block Cholesky factors, the full MVM of the
+    initial residual and the column slabs) and the gradient. The wrapped
+    functions are restored on exit."""
+    import repro_torch.core.outer as outer
+    from repro_torch.solvers.operator import HOperator
+
+    phases = ((outer, "build_system_targets", "targets"),
+              (outer, "solve", "solve"),
+              (outer, "mll_grad_estimate", "gradient"),
+              (HOperator, "all_block_cholesky", "block_cholesky"),
+              (HOperator, "mvm", "full_mvm"),
+              (HOperator, "col_block_mvm", "column_slabs"))
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[key] += time.perf_counter() - t0
+        return call
+
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in phases]
+    for owner, name, key in phases:
+        seconds.setdefault(key, 0.0)
+        setattr(owner, name, timed(getattr(owner, name), key))
+    try:
+        yield seconds
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_large_steps(torch, tiled) -> tuple:
+    """One outer step of AP through the train CLI at full song (d = 90),
+    buzz (d = 77) and houseelectric (1 659 916 rows, d = 11): ``--max-n 0
+    --solver ap --pathwise --warm-start --budget 1 --steps 1 --eval-every
+    0`` with the CLI's defaults otherwise (64 probes, 1000-row blocks),
+    with the launch counts set to 0 just before and read just after. Per
+    dataset: the host's seconds to load, pad and set up, the step's
+    seconds split by :func:`phase_timers`, iterations, epochs, residuals,
+    launches and peak memory."""
+    from repro_torch.launch.train import run_gp
+
+    totals = dict.fromkeys(tiled.LAUNCHES, 0)
+    second_totals = dict.fromkeys(tiled.SECOND_PASSES, 0)
+    problems = []
+    for name in LARGE_STEP_DATASETS:
+        args = _train_args(dataset=name, max_n=0, solver="ap", pathwise=True,
+                           warm_start=True, budget=1.0, steps=1,
+                           eval_every=0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tiled.reset_launch_counts()
+        t0 = time.perf_counter()
+        with phase_timers(torch, {}) as phase:
+            run = run_gp(args)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tiled.launch_counts()
+        second_passes = dict(tiled.SECOND_PASSES)
+        peak = torch.cuda.max_memory_allocated()
+        h, state = run.fit.history, run.fit.state
+        n, d = state.carry_v.shape[0], state.params.raw_lengthscales.numel()
+        expected = expected_launches(tiled, h, "ap", d, args.probes)
+        phase["solve_rest"] = phase["solve"] - sum(
+            phase[k] for k in ("block_cholesky", "full_mvm", "column_slabs"))
+        iters = int(h["iters"][0])
+        emit({"phase": "large_steps", "dataset": name, "n_padded": n, "d": d,
+              "num_probes": args.probes, "block_size": args.block_size,
+              "budget_epochs": args.budget, "wall_s": wall,
+              "setup_s": wall - run.fit.wall_time_s,
+              "step_s": float(h["step_time_s"][0]), "phase_s": phase,
+              "slab_s_per_iter": phase["column_slabs"] / max(iters, 1),
+              "iters": iters, "epochs": float(h["epochs"][0]),
+              "res_y": float(h["res_y"][0]), "res_z": float(h["res_z"][0]),
+              "launches": launches, "expected_launches": expected,
+              "fwd_second_pass_calls": second_passes[tiled.KERNEL_NAME],
+              "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
+              "peak_mem_bytes": peak})
+        for k in tiled.LAUNCHES:
+            totals[k] += launches[k]
+            second_totals[k] += second_passes[k]
+            if launches[k] == 0 or launches[k] != expected[k]:
+                problems.append(f"{name}: {k} launches {launches[k]} != "
+                                f"{expected[k]}")
+        values = [h["res_y"][0], h["res_z"][0], *h["hypers"].ravel()]
+        if not all(math.isfinite(float(x)) for x in values):
+            problems.append(f"{name}: non-finite output")
+        if n % args.block_size or h["epochs"][0] > args.budget:
+            problems.append(f"{name}: n {n} or epochs {h['epochs'][0]}")
+        del run
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return totals, second_totals
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -755,6 +1075,7 @@ def ptxas_spills(report: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py; run it from "
              "the repository root")
@@ -798,23 +1119,31 @@ def main() -> int:
             failures.append("device")
     fwd_entry = bwd_entry = None
     path_launches = []
+    phase_s = {"build": build_s}
+    t_phase = time.perf_counter()
     try:
         fwd_entry = phase_kernels(torch, tiled, registry)
     except Exception:  # every phase runs; any failure fails the smoke
         traceback.print_exc()
         failures.append("kernels")
+    phase_s["kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     try:
         bwd_entry = phase_kernels_bwd(torch, tiled, registry)
         phase_grad(torch)
     except Exception:
         traceback.print_exc()
         failures.append("kernels_bwd")
+    phase_s["kernels_bwd"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     try:
         _, launches, _ = phase_serve(torch, tiled)
         path_launches.append(launches)
     except Exception:
         traceback.print_exc()
         failures.append("serve")
+    phase_s["serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     try:
         launches, fits = phase_train(torch, tiled)
         path_launches.append(launches)
@@ -824,6 +1153,24 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("train")
+    phase_s["train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        launches, prof_args = phase_large(torch, tiled)
+        path_launches.append(launches)
+        phase_profile(torch, "e_3droad_warm", *prof_args)
+    except Exception:
+        traceback.print_exc()
+        failures.append("large")
+    phase_s["large"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        path_launches.append(phase_large_steps(torch, tiled))
+        phase_rff_memory(torch)
+    except Exception:
+        traceback.print_exc()
+        failures.append("large_steps")
+    phase_s["large_steps"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)
@@ -839,6 +1186,8 @@ def main() -> int:
                       total(tiled.BWD_KERNEL_NAME), bwd_entry,
                       second_pass_calls=total(tiled.BWD_KERNEL_NAME, 1)),
     ]
+    emit({"phase": "timing", "phase_s": phase_s,
+          "wall_s": time.perf_counter() - t_start})
     if failures:
         fail(f"phases failed: {failures}", code=1)
     print(smi, flush=True)

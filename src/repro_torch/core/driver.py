@@ -1,11 +1,11 @@
-"""The fit loop with evaluation and checkpoints, and the SGD learning-rate
-grid; port of the single-lane part of ``repro.core.driver``.
+"""The fit loop with evaluation and checkpoints, the SGD learning-rate grid
+and the large-dataset initialisation heuristic; port of the single-lane
+part of ``repro.core.driver``.
 
 Runs ``cfg.num_steps`` outer steps one at a time, keeps the per-step
 history, evaluates on ``(x_test, y_test)`` every ``eval_every`` steps and
 checkpoints every ``ckpt_every`` steps and at the end, with the reference's
-restart semantics. The budget policy, lanes and the initialisation
-heuristic arrive with later slices.
+restart semantics. The budget policy and lanes arrive with later slices.
 """
 from __future__ import annotations
 
@@ -36,10 +36,12 @@ from repro_torch.core.outer import (
     outer_step,
 )
 from repro_torch.core.predict import pathwise_predict, predictive_metrics
+from repro_torch.gp.exact import exact_mll
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.solvers import HOperator, solve
 from repro_torch.solvers.base import max_iters_from_epochs
 from repro_torch.solvers.sgd import draw_schedule
+from repro_torch.train.adam import AdamConfig, adam_init, adam_update
 
 SGD_LR_GRID = [5.0, 10.0, 20.0, 30.0, 50.0, 60.0, 70.0, 80.0, 90.0, 100.0]
 
@@ -203,6 +205,64 @@ def pick_sgd_learning_rate(
             else:
                 break
     return best / 2.0 if halve else best
+
+
+def nearest_rows(x: torch.Tensor, i: int, size: int) -> torch.Tensor:
+    """Indices of the ``size`` rows of ``x`` nearest row ``i`` by squared
+    distance, nearest first; a stable sort, so ties keep row order (the
+    reference's ``argsort(sum((x - x[i])**2, axis=1))[:size]``)."""
+    dist = torch.sum((x - x[i]) ** 2, dim=1)
+    return torch.argsort(dist, stable=True)[:size]
+
+
+def init_hypers_heuristic(
+    generator: Optional[torch.Generator],
+    x: torch.Tensor,
+    y: torch.Tensor,
+    subset_size: int = 10_000,
+    num_centroids: int = 10,
+    num_steps: int = 30,
+    adam_lr: float = 0.1,
+    kind: str = "matern32",
+    centroids: Optional[Sequence[int]] = None,
+) -> HyperParams:
+    """Large-dataset initialisation heuristic (paper Appendix B / Lin et al.).
+
+    For each of ``num_centroids`` centroid rows: take its ``subset_size``
+    nearest rows (:func:`nearest_rows`), start from the paper's initial
+    hyperparameters and run ``num_steps`` Adam ascent steps on the EXACT
+    subset MLL; return the mean of the results' raw leaves. The centroids
+    are ``centroids`` when given (how a test hands over the reference's
+    ``randint`` draws), else drawn uniformly from ``generator``. Runs on
+    ``x``'s device.
+    """
+    n, d = x.shape
+    subset_size = min(subset_size, n)
+    if centroids is None:
+        centroids = torch.randint(0, n, (num_centroids,), generator=generator,
+                                  device=x.device).tolist()
+    if len(centroids) != num_centroids:
+        raise ValueError(f"{len(centroids)} centroids given, "
+                         f"num_centroids={num_centroids}")
+    cfg = AdamConfig(learning_rate=adam_lr)
+    acc = None
+    for i in centroids:
+        idx = nearest_rows(x, i, subset_size)
+        xc, yc = x[idx], y[idx]
+        params = HyperParams.create(d, dtype=x.dtype, kernel=kind,
+                                    device=x.device)
+        adam = adam_init(params)
+        for _ in range(num_steps):
+            leaves = [p.detach().requires_grad_(True) for p in params.leaves]
+            with torch.enable_grad():
+                mll = exact_mll(xc, yc, params.with_leaves(leaves), kind=kind)
+                grads = torch.autograd.grad(mll, leaves)
+            with torch.no_grad():
+                params, adam = adam_update(params.with_leaves(grads), adam,
+                                           params, cfg, maximize=True)
+        acc = params.leaves if acc is None else [
+            a + p for a, p in zip(acc, params.leaves)]
+    return params.with_leaves([a / num_centroids for a in acc])
 
 
 def evaluate(

@@ -67,7 +67,13 @@
 //    4-byte cp.async (rows of w and v are not 16-byte aligned; zero-filled
 //    past m) into the second of two buffers while the current one is
 //    computed. For d > 52 two buffers do not fit; one is used and the copy
-//    follows the compute. d <= 116.
+//    follows the compute.
+//  * The range. Where u's row tile and one buffer do not fit beside the
+//    running sums (d > 116 at s >= 72, d > 212 at s <= 8), a second kernel
+//    (kernel_mvm_fwd_wide) streams u and w through shared memory 64
+//    coordinates at a time per column tile, summing r2 in the same order,
+//    with no copy overlapping compute: any d, for a range no paper dataset
+//    reaches. s is covered by the s-chunks of the grid at any width.
 //  * Ragged n, m, s and d are masked in the kernel: rows of w and v past m
 //    stage as zeros (a zero row of v contributes nothing), coordinates past
 //    d are zero in both u and w, and rows or columns past n or s are never
@@ -85,6 +91,7 @@ constexpr int BM = 32 * ROW_WARPS;       // rows of u per block
 constexpr int BN = 128;                  // rows of (w, v) per column tile
 constexpr int THREADS = 64 * ROW_WARPS;  // warps: (row part, column half)
 constexpr int MAX_NT = 9;                // n8 tiles of s: s-chunk <= 72
+constexpr int DC = 64;                   // coordinates per chunk, wide path
 
 constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr float kSqrt5 = 2.23606797749979f;
@@ -214,6 +221,24 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
   }
 }
 
+// Copy coordinates [0, width) of `rows` rows (global row stride
+// `src_stride`) into ROWS rows of DC floats in shared memory (row stride
+// `dst_stride`); coordinates [width, DC) and the rows past `rows` are
+// zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void copy_chunk(float* dst, int dst_stride,
+                                           const float* __restrict__ src,
+                                           int src_stride, int width,
+                                           int rows) {
+  for (int e = threadIdx.x; e < ROWS * DC; e += THREADS) {
+    const int j = e / DC, k = e - (e / DC) * DC;
+    const bool ok = j < rows && k < width;
+    cp_async4(dst + j * dst_stride + k,
+              ok ? src + static_cast<long long>(j) * src_stride + k : src,
+              ok ? 4 : 0);
+  }
+}
+
 // Per-block constants of the kernel.
 struct Geometry {
   int dp;         // row stride of u and w in shared memory
@@ -222,17 +247,11 @@ struct Geometry {
   int stage_len;  // floats per buffer: [BN][dp] of w, then [BN][SP] of v
 };
 
-// r2, then kappa, for rows g + 8a and columns t + 4b of this warp's
-// (32 x 64) part of the tile: the A-fragment layout of mma.m16n8k8.
-template <int KIND>
-__device__ __forceinline__ void tile_kappa(float (&kt)[4][16],
-                                           const float* urow,
-                                           const float* wrow, int dp,
-                                           int dk) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 16; ++b) kt[a][b] = 0.0f;
+// kt[a][b] += sum over dk coordinates of (u - w)^2 for rows g + 8a and
+// columns t + 4b of this warp's (32 x 64) part of the tile: the A-fragment
+// layout of mma.m16n8k8.
+__device__ __forceinline__ void tile_r2(float (&kt)[4][16], const float* urow,
+                                        const float* wrow, int dp, int dk) {
 #pragma unroll 1
   for (int k = 0; k < dk; k += 4) {
     float4 ua[4];
@@ -255,10 +274,32 @@ __device__ __forceinline__ void tile_kappa(float (&kt)[4][16],
       }
     }
   }
+}
+
+__device__ __forceinline__ void zero_tile(float (&kt)[4][16]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 16; ++b) kt[a][b] = 0.0f;
+}
+
+template <int KIND>
+__device__ __forceinline__ void apply_kappa(float (&kt)[4][16]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 16; ++b) kt[a][b] = kappa<KIND>(kt[a][b]);
+}
+
+// r2, then kappa, for the thread's pairs (the layout of tile_r2).
+template <int KIND>
+__device__ __forceinline__ void tile_kappa(float (&kt)[4][16],
+                                           const float* urow,
+                                           const float* wrow, int dp,
+                                           int dk) {
+  zero_tile(kt);
+  tile_r2(kt, urow, wrow, dp, dk);
+  apply_kappa<KIND>(kt);
 }
 
 // acc += kappa @ V for this warp's 32 rows: 8 k-steps of 8 columns, NT n8
@@ -317,6 +358,34 @@ __device__ __forceinline__ void tile_mma(float* acc, const float (&kt)[4][16],
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         acc[((mt * NT + nt) * 4 + c) * THREADS] += part[mt][nt][c];
+}
+
+// Store a jh = 0 thread's rows: each row's sum is the two column halves'
+// (this thread's, then the jh = 1 thread's THREADS / 2 further on), added
+// in that order. Rows row + 16 mt + 8 h, columns col + 8 nt + e, masked to
+// (n, s); dst has row stride s.
+template <int NT>
+__device__ __forceinline__ void store_sums(const float* accs, float* dst,
+                                           int row, int col, int n, int s) {
+  const float* mine = accs + threadIdx.x;
+  const float* other = mine + THREADS / 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + mt * 16 + h * 8;
+      if (r >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = ((mt * NT + nt) * 4 + 2 * h + e) * THREADS;
+          const int c = col + nt * 8 + e;
+          if (c < s) dst[static_cast<long long>(r) * s + c] = mine[i] + other[i];
+        }
+      }
+    }
+  }
 }
 
 // Blocks of THREADS threads: warp (rh, jh) owns rows 32 rh .. 32 rh + 31 of
@@ -406,29 +475,86 @@ kernel_mvm_fwd(const float* __restrict__ u, const float* __restrict__ w,
   __syncthreads();
   if (jh == 1) return;
 
-  // Each row's sum is the two column halves' (jh = 0, then jh = 1).
-  float* dst = splits > 1
-                   ? workspace + static_cast<long long>(z) * n * s : out;
-  const float* mine = accs + tid;
-  const float* other = accs + tid + (THREADS / 2);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + rh * 32 + mt * 16 + h * 8 + g;
-      if (row >= n) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = ((mt * NT + nt) * 4 + 2 * h + e) * THREADS;
-          const int col = c0 + nt * 8 + 2 * t + e;
-          if (col < s)
-            dst[static_cast<long long>(row) * s + col] = mine[i] + other[i];
-        }
-      }
+  store_sums<NT>(accs, splits > 1
+                            ? workspace + static_cast<long long>(z) * n * s
+                            : out,
+                 row0 + rh * 32 + g, c0 + 2 * t, n, s);
+}
+
+// The path for d where u's row tile and a (w, v) buffer do not fit in
+// shared memory beside the running sums (d > 116 at s >= 72): per column
+// tile, r2 is summed over chunks of DC coordinates of u and w streamed
+// through shared memory, then kappa @ V as above. One buffer, no copy
+// overlaps compute, s-chunks of 72 columns: a path for a range no paper
+// dataset reaches. The coordinates are summed in the same order as above.
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 4 / ROW_WARPS)
+kernel_mvm_fwd_wide(const float* __restrict__ u, const float* __restrict__ w,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    float* __restrict__ workspace, int n, int m, int d, int s,
+                    int splits) {
+  constexpr int NT = MAX_NT;
+  constexpr int SC = 8 * NT, SP = padded_s(NT), ACC = 2 * NT * 4;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
+  const int row0 = blockIdx.x * BM;
+  const int z = blockIdx.y;
+  const int c0 = blockIdx.z * SC;
+  const int width = s - c0 < SC ? s - c0 : SC;
+  const int dp = padded_d(DC);
+  const int rows_u = n - row0 < BM ? n - row0 : BM;
+  float* accs = smem;                // [ACC][THREADS] running sums
+  float* us = accs + ACC * THREADS;  // [BM][dp]: a chunk of u's row tile
+  float* ws = us + BM * dp;          // [BN][dp]: the chunk of w's tile
+  float* vs = ws + BN * dp;          // [BN][SP]: the tile's rows of v
+  const int tiles = (m + BN - 1) / BN;
+  const int t_lo = static_cast<int>(static_cast<long long>(z) * tiles / splits);
+  const int t_hi =
+      static_cast<int>(static_cast<long long>(z + 1) * tiles / splits);
+  const Walk walk_v(tid, width);
+
+  for (int i = 0; i < ACC; ++i) accs[i * THREADS + tid] = 0.0f;
+  // Columns width..SC-1 of v stay zero (the copies write only the others).
+  for (int r = tid; r < BN; r += THREADS)
+    for (int q = width; q < SC; ++q) vs[r * SP + q] = 0.0f;
+
+  const float* urow = us + (rh * 32 + g) * dp;  // rows g + 8a, a < 4
+  const float* wrow = ws + (jh * 64 + t) * dp;  // columns t + 4b, b < 16
+  const float* vrow = vs + (jh * 64) * SP;
+  float kt[4][16];
+  for (int jt = t_lo; jt < t_hi; ++jt) {
+    const int j0 = jt * BN;
+    const int rows_w = m - j0 < BN ? m - j0 : BN;
+    zero_tile(kt);
+    for (int k0 = 0; k0 < d; k0 += DC) {
+      const int dw = d - k0 < DC ? d - k0 : DC;
+      __syncthreads();  // every warp is done with the buffers it overwrites
+      copy_chunk<BM>(us, dp, u + static_cast<long long>(row0) * d + k0, d,
+                     dw, rows_u);
+      copy_chunk<BN>(ws, dp, w + static_cast<long long>(j0) * d + k0, d, dw,
+                     rows_w);
+      if (k0 == 0)
+        copy_rows(vs, SP, v + static_cast<long long>(j0) * s + c0, s, width,
+                  rows_w, walk_v);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the chunk (and the v tile) has landed
+      tile_r2(kt, urow, wrow, dp, (dw + 3) & ~3);
     }
+    apply_kappa<KIND>(kt);
+    tile_mma<NT>(accs + tid, kt, vrow, g, t);
   }
+  __syncthreads();
+  if (jh == 1) return;
+
+  store_sums<NT>(accs, splits > 1
+                            ? workspace + static_cast<long long>(z) * n * s
+                            : out,
+                 row0 + rh * 32 + g, c0 + 2 * t, n, s);
 }
 
 // out[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...
@@ -443,6 +569,20 @@ kernel_mvm_fwd_reduce(const float* __restrict__ workspace,
     for (int z = 1; z < splits; ++z) sum += workspace[z * ns + e];
     out[e] = sum;
   }
+}
+
+// After the main kernel: the launch's error, and with splits > 1 the
+// second pass over the workspace.
+cudaError_t reduce_splits(const float* workspace, float* out, int n, int s,
+                          int splits, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long ns = static_cast<long long>(n) * s;
+  long long blocks = (ns + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  kernel_mvm_fwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
+      workspace, out, ns, splits);
+  return cudaGetLastError();
 }
 
 template <int KIND, int NT>
@@ -468,14 +608,33 @@ cudaError_t launch(const float* u, const float* w, const float* v, float* out,
   const dim3 grid((n + BM - 1) / BM, splits, (s + sc - 1) / sc);
   kern<<<grid, THREADS, smem, stream>>>(u, w, v, out, workspace, n, m, d, s,
                                         splits, stages);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long ns = static_cast<long long>(n) * s;
-  long long blocks = (ns + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  kernel_mvm_fwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
-      workspace, out, ns, splits);
-  return cudaGetLastError();
+  return reduce_splits(workspace, out, n, s, splits, stream);
+}
+
+// Wide path: one (w, v) buffer, u and w staged DC coordinates at a time.
+template <int KIND>
+cudaError_t launch_wide(const float* u, const float* w, const float* v,
+                        float* out, float* workspace, int n, int m, int d,
+                        int s, int splits, cudaStream_t stream) {
+  static size_t smem_set = 0;  // dynamic shared memory granted so far
+  const size_t smem = smem_bytes(DC, MAX_NT, 1);
+  auto kern = kernel_mvm_fwd_wide<KIND>;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const int sc = 8 * MAX_NT;
+  const dim3 grid((n + BM - 1) / BM, splits, (s + sc - 1) / sc);
+  kern<<<grid, THREADS, smem, stream>>>(u, w, v, out, workspace, n, m, d, s,
+                                        splits);
+  return reduce_splits(workspace, out, n, s, splits, stream);
 }
 
 template <int KIND>
@@ -486,6 +645,9 @@ cudaError_t launch_kind(const float* u, const float* w, const float* v,
   case NT:                                                                 \
     return launch<KIND, NT>(u, w, v, out, workspace, n, m, d, s, splits, \
                             stream);
+  if (smem_bytes(d, num_nt(s), 1) > kMaxSmem)
+    return launch_wide<KIND>(u, w, v, out, workspace, n, m, d, s, splits,
+                             stream);
   switch (num_nt(s)) {
     REPRO_NT_CASE(1)
     REPRO_NT_CASE(2)
@@ -505,7 +667,8 @@ cudaError_t launch_kind(const float* u, const float* w, const float* v,
 }  // namespace
 
 // Plain C interface (bound with ctypes). `workspace` holds splits * n * s
-// floats when splits > 1 and may be null otherwise. Returns 0 or a
+// floats when splits > 1 and may be null otherwise. Any d and s. Returns 0
+// or a
 // cudaError_t code; -1 for an unknown kind, -2 for shapes or a split count
 // the kernel does not take.
 extern "C" int repro_kernel_mvm_fwd(const float* u, const float* w,
@@ -517,7 +680,6 @@ extern "C" int repro_kernel_mvm_fwd(const float* u, const float* w,
   if (splits < 1 || splits > 65535 || (splits > 1 && splits > tiles) ||
       (splits > 1 && workspace == nullptr))
     return -2;
-  if (smem_bytes(d, num_nt(s), 1) > kMaxSmem) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kRbf:

@@ -82,6 +82,15 @@
 //    else 4 bytes at a time (w at d = 26). Where two buffers do not fit in
 //    227 KB (d = 96 with s' = 136) one is used and the copy follows the
 //    compute. u and g are staged once per block.
+//  * The range. The per-thread sums above cover d <= 96 (KQ <= 6 groups of
+//    16 coordinates). For d > 96 a second kernel (kernel_mvm_bwd_wide)
+//    gives each block 96 coordinates of du (a third grid dimension) and
+//    streams u and w through shared memory 96 coordinates at a time, so
+//    every block sums r2 over all of d: ceil(d / 96) times the r2 work,
+//    for a range no paper dataset reaches. s is bounded by the row tiles
+//    of g and v in shared memory (s <= 264 at d = 26, 200 at d >= 96);
+//    the wrapper splits wider (g, v) over launches and adds the du's
+//    (kernels/tiled.py::bwd_s_chunks), exact since D is a sum over s.
 //  * Ragged n, m, s and d are masked in the kernel: rows of w and v past m
 //    stage as zeros (their Gram and D are 0), rows of u and g past n stage
 //    as zeros and are never stored, coordinates past d and columns past s
@@ -99,6 +108,7 @@ constexpr int BM = 32 * ROW_WARPS;       // rows of u and g per block
 constexpr int BN = 64;                   // rows of (w, v) per column tile
 constexpr int THREADS = 64 * ROW_WARPS;  // warps: (row part, column half)
 constexpr int KQ_MAX = 6;                // 16-coordinate groups: d <= 96
+constexpr int DC = 16 * KQ_MAX;          // coordinates per chunk, d > 96
 
 constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr float kSqrt5 = 2.23606797749979f;
@@ -226,6 +236,24 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
   }
 }
 
+// Copy coordinates [0, width) of `rows` rows (global row stride
+// `src_stride`) into ROWS rows of DC floats in shared memory (row stride
+// `dst_stride`), 4 bytes at a time; coordinates [width, DC) and the rows
+// past `rows` are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void copy_chunk(float* dst, int dst_stride,
+                                           const float* __restrict__ src,
+                                           int src_stride, int width,
+                                           int rows) {
+  for (int e = threadIdx.x; e < ROWS * DC; e += THREADS) {
+    const int j = e / DC, k = e - (e / DC) * DC;
+    const bool ok = j < rows && k < width;
+    cp_async<1>(dst + j * dst_stride + k,
+                ok ? src + static_cast<long long>(j) * src_stride + k : src,
+                ok);
+  }
+}
+
 // C = g v^T for this warp's 32 x 32 part of the tile, summed from 0 over
 // all of s (ksteps k-steps of 8): 2 m16 x 4 n8 tiles, 3 products each.
 // arow points at row g, column 2t of the warp's g rows; brow at row g,
@@ -277,19 +305,11 @@ __device__ __forceinline__ void tile_gram(float (&c)[2][4][4],
   }
 }
 
-// D = C .* dkappa(r2) for the thread's pairs: rows g + 8q (q = 2mt + h),
-// columns 2t + e + 8nt. urow points at row g of the warp's u rows, wrow at
-// row 2t of its w rows; r2 by direct differences over dk coordinates.
-template <int KIND>
-__device__ __forceinline__ void tile_slope(float (&c)[2][4][4],
-                                           const float* urow,
-                                           const float* wrow, int dp,
-                                           int dk) {
-  float r2[4][8];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) r2[q][b] = 0.0f;
+// r2[q][b] += sum over dk coordinates of (u - w)^2 for the thread's pairs:
+// rows g + 8q (q = 2mt + h), columns 2t + e + 8nt (b = 2nt + e). urow points
+// at row g of the warp's u rows, wrow at row 2t of its w rows.
+__device__ __forceinline__ void tile_r2(float (&r2)[4][8], const float* urow,
+                                        const float* wrow, int dp, int dk) {
 #pragma unroll 1
   for (int k = 0; k < dk; k += 4) {
     float4 ua[4];
@@ -313,11 +333,32 @@ __device__ __forceinline__ void tile_slope(float (&c)[2][4][4],
       }
     }
   }
+}
+
+// D = C .* dkappa(r2) for the thread's pairs (the layout of tile_r2).
+template <int KIND>
+__device__ __forceinline__ void apply_slope(float (&c)[2][4][4],
+                                            const float (&r2)[4][8]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int b = 0; b < 8; ++b)
       c[q >> 1][b >> 1][2 * (q & 1) + (b & 1)] *= dkappa<KIND>(r2[q][b]);
+}
+
+// D = C .* dkappa(r2), r2 by direct differences over dk coordinates.
+template <int KIND>
+__device__ __forceinline__ void tile_slope(float (&c)[2][4][4],
+                                           const float* urow,
+                                           const float* wrow, int dp,
+                                           int dk) {
+  float r2[4][8];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) r2[q][b] = 0.0f;
+  tile_r2(r2, urow, wrow, dp, dk);
+  apply_slope<KIND>(c, r2);
 }
 
 // acc[c4][q] += sum over the tile's columns j of D_ij (u_ik - w_jk) for
@@ -497,6 +538,130 @@ kernel_mvm_bwd(const float* __restrict__ u, const float* __restrict__ w,
   }
 }
 
+// The path for d > 96, where the sums of the kernel above do not fit in
+// registers. Block (row tile, column split z, coordinate chunk kc) writes
+// du's coordinates [96 kc, 96 kc + 96); per column tile it streams u and w
+// through shared memory 96 coordinates at a time to sum r2 over all of d,
+// ending with chunk kc, then takes the slope and contracts with chunk kc.
+// So the r2 work is done once per chunk of du (ceil(d / 96) times), and no
+// copy overlaps compute: a path for a range no paper dataset reaches.
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel_mvm_bwd_wide(const float* __restrict__ u, const float* __restrict__ w,
+                    const float* __restrict__ g, const float* __restrict__ v,
+                    float* __restrict__ du, float* __restrict__ workspace,
+                    int n, int m, int d, int s, int splits, int vec_v) {
+  constexpr int NC = 4 * KQ_MAX;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
+  const int row0 = blockIdx.x * BM;
+  const int z = blockIdx.y;
+  const int kc = blockIdx.z, chunks = gridDim.z;
+  const int k0 = kc * DC;
+  const int dp = padded_d(DC), sp = padded_s(s);
+  const int rows_u = n - row0 < BM ? n - row0 : BM;
+  float* gs = smem;           // [BM][sp]
+  float* vs = gs + BM * sp;   // [BN][sp]
+  float* us = vs + BN * sp;   // [BM][dp]: a chunk of u's row tile
+  float* ws = us + BM * dp;   // [BN][dp]: the same chunk of w's column tile
+  const int tiles = (m + BN - 1) / BN;
+  const int t_lo = static_cast<int>(static_cast<long long>(z) * tiles / splits);
+  const int t_hi =
+      static_cast<int>(static_cast<long long>(z + 1) * tiles / splits);
+
+  for (int idx = tid; idx < BM * sp; idx += THREADS) {
+    const int r = idx / sp;
+    const int k = idx - r * sp;
+    gs[idx] = (row0 + r < n && k < s)
+                  ? g[static_cast<long long>(row0 + r) * s + k] : 0.0f;
+  }
+  // Columns s..sp-1 of v stay zero (the copies write only the others).
+  for (int r = tid; r < BN; r += THREADS)
+    for (int k = s; k < sp; ++k) vs[r * sp + k] = 0.0f;
+
+  const float* arow = gs + (rh * 32 + gq) * sp + 2 * t;
+  const float* urow = us + (rh * 32 + gq) * dp;
+  const int wofs = (jh * 32 + 2 * t) * dp;
+  const float* brow = vs + (jh * 32 + gq) * sp + 2 * t;
+  float acc[NC][4];
+#pragma unroll
+  for (int c4 = 0; c4 < NC; ++c4)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[c4][q] = 0.0f;
+  // Chunk i of a column tile's walk over the coordinates (the last is kc),
+  // and with i = 0 the tile's rows of v; its width rounded up to 4.
+  auto load_chunk = [&](int i, int j0, int rows_w) {
+    const int c0 = ((kc + 1 + i) % chunks) * DC;
+    const int width = d - c0 < DC ? d - c0 : DC;
+    copy_chunk<BM>(us, dp, u + static_cast<long long>(row0) * d + c0, d,
+                   width, rows_u);
+    copy_chunk<BN>(ws, dp, w + static_cast<long long>(j0) * d + c0, d,
+                   width, rows_w);
+    if (i == 0) {
+      const float* vsrc = v + static_cast<long long>(j0) * s;
+      if (vec_v) copy_rows<4>(vs, sp, vsrc, s, rows_w);
+      else copy_rows<1>(vs, sp, vsrc, s, rows_w);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the chunk (and the v tile) has landed
+    return (width + 3) & ~3;
+  };
+
+  float c[2][4][4];
+  for (int jt = t_lo; jt < t_hi; ++jt) {
+    const int j0 = jt * BN;
+    const int rows_w = m - j0 < BN ? m - j0 : BN;
+    __syncthreads();  // every warp is done with the previous tile's buffers
+    int dk = load_chunk(0, j0, rows_w);
+    tile_gram(c, arow, brow, sp, sp / 8);
+    float r2[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) r2[q][b] = 0.0f;
+    tile_r2(r2, urow, ws + wofs, dp, dk);
+    for (int i = 1; i < chunks; ++i) {
+      __syncthreads();  // every warp is done with the previous chunk
+      dk = load_chunk(i, j0, rows_w);
+      tile_r2(r2, urow, ws + wofs, dp, dk);
+    }
+    apply_slope<KIND>(c, r2);
+    tile_contract<NC>(acc, c, urow, ws + wofs, dp, dk, t);
+  }
+  __syncthreads();  // every warp is done with us
+
+  // Each row's sum is the two column halves' (jh = 0, then jh = 1): the
+  // jh = 1 warps leave theirs in us, the jh = 0 warps add and store.
+  if (jh == 1) {
+#pragma unroll
+    for (int c4 = 0; c4 < NC; ++c4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        us[(rh * 32 + gq + 8 * q) * dp + 4 * c4 + t] = acc[c4][q];
+    }
+  }
+  __syncthreads();
+  if (jh == 1) return;
+  float* dst = splits > 1
+                   ? workspace + static_cast<long long>(z) * n * d : du;
+#pragma unroll
+  for (int c4 = 0; c4 < NC; ++c4) {
+    const int k = k0 + 4 * c4 + t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = rh * 32 + gq + 8 * q;
+      if (row0 + r < n && k < d)
+        dst[static_cast<long long>(row0 + r) * d + k] =
+            2.0f * (acc[c4][q] + us[r * dp + 4 * c4 + t]);
+    }
+  }
+}
+
 // du[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...
 __global__ void __launch_bounds__(256)
 kernel_mvm_bwd_reduce(const float* __restrict__ workspace,
@@ -513,6 +678,20 @@ kernel_mvm_bwd_reduce(const float* __restrict__ workspace,
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// After the main kernel: the launch's error, and with splits > 1 the
+// second pass over the workspace.
+cudaError_t reduce_splits(const float* workspace, float* du, int n, int d,
+                          int splits, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long nd = static_cast<long long>(n) * d;
+  long long blocks = (nd + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  kernel_mvm_bwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
+      workspace, du, nd, splits);
+  return cudaGetLastError();
 }
 
 template <int KIND, int KQ>
@@ -539,20 +718,43 @@ cudaError_t launch(const float* u, const float* w, const float* g,
   const dim3 grid((n + BM - 1) / BM, splits);
   kern<<<grid, THREADS, smem, stream>>>(u, w, g, v, du, workspace, n, m, d, s,
                                         splits, stages, vec_w, vec_v);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long nd = static_cast<long long>(n) * d;
-  long long blocks = (nd + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  kernel_mvm_bwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
-      workspace, du, nd, splits);
-  return cudaGetLastError();
+  return reduce_splits(workspace, du, n, d, splits, stream);
+}
+
+// The path for d > 96: one block per (row tile, split, 96 coordinates of
+// du), one (w, v) buffer.
+template <int KIND>
+cudaError_t launch_wide(const float* u, const float* w, const float* g,
+                        const float* v, float* du, float* workspace, int n,
+                        int m, int d, int s, int splits, cudaStream_t stream) {
+  static size_t smem_set = 0;  // dynamic shared memory granted so far
+  const size_t smem = smem_bytes(DC, s, 1);
+  auto kern = kernel_mvm_bwd_wide<KIND>;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const int vec_v = s % 4 == 0 && aligned16(v);
+  const dim3 grid((n + BM - 1) / BM, splits, (d + DC - 1) / DC);
+  kern<<<grid, THREADS, smem, stream>>>(u, w, g, v, du, workspace, n, m, d, s,
+                                        splits, vec_v);
+  return reduce_splits(workspace, du, n, d, splits, stream);
 }
 
 template <int KIND>
 cudaError_t launch_kind(const float* u, const float* w, const float* g,
                         const float* v, float* du, float* workspace, int n,
                         int m, int d, int s, int splits, cudaStream_t stream) {
+  if (d > DC)
+    return launch_wide<KIND>(u, w, g, v, du, workspace, n, m, d, s, splits,
+                             stream);
   switch ((d + 15) / 16) {
     case 1: return launch<KIND, 1>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
     case 2: return launch<KIND, 2>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
@@ -566,19 +768,20 @@ cudaError_t launch_kind(const float* u, const float* w, const float* g,
 }  // namespace
 
 // Plain C interface (bound with ctypes). `workspace` holds splits * n * d
-// floats when splits > 1 and may be null otherwise. Returns 0 or a
-// cudaError_t code; -1 for an unknown kind, -2 for shapes or a split count
-// the kernel does not take.
+// floats when splits > 1 and may be null otherwise. Any d; s as far as
+// shared memory holds g's and v's tiles (the wrapper splits wider operands
+// over launches). Returns 0 or a cudaError_t code; -1 for an unknown kind,
+// -2 for shapes or a split count the kernel does not take.
 extern "C" int repro_kernel_mvm_bwd(const float* u, const float* w,
                                     const float* g, const float* v, float* du,
                                     float* workspace, int n, int m, int d,
                                     int s, int kind, int splits, void* stream) {
-  if (n <= 0 || m < 0 || d <= 0 || d > 16 * KQ_MAX || s <= 0) return -2;
+  if (n <= 0 || m < 0 || d <= 0 || s <= 0) return -2;
   const int tiles = (m + BN - 1) / BN;
   if (splits < 1 || splits > 65535 || (splits > 1 && splits > tiles) ||
       (splits > 1 && workspace == nullptr))
     return -2;
-  if (smem_bytes(d, s, 1) > kMaxSmem) return -2;
+  if (smem_bytes(d < DC ? d : DC, s, 1) > kMaxSmem) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kRbf:

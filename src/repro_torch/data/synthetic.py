@@ -55,7 +55,10 @@ def make_gp_regression(
     """Draw (x, y) on the CPU with y an RFF Matérn-3/2 prior sample + noise.
 
     The default lengthscale grows with sqrt(d) so the latent function has
-    learnable structure at any input dimension.
+    learnable structure at any input dimension. The sample is evaluated in
+    row chunks (:func:`repro_torch.gp.rff.prior_sample_at`), so the draw
+    holds O(n d) host memory at the paper's 1.8 M rows, not n x 1024
+    features.
     """
     if lengthscale is None:
         lengthscale = 1.6 * float(d) ** 0.5

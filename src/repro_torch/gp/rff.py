@@ -27,6 +27,10 @@ DEFAULT_NUM_PAIRS = {
 }
 AUTO_NUM_PAIRS = -1
 
+# Rows per chunk of :func:`prior_sample_at`: a chunk's features are
+# 4096 x 2m fp32 (33 MB at 1000 pairs) at any n.
+PRIOR_ROW_CHUNK = 4096
+
 
 def default_num_pairs(kind: str) -> int:
     """The kernel's default feature-pair count (1000 for unlisted kernels)."""
@@ -79,5 +83,13 @@ def rff_features(x: torch.Tensor, state: RFFState,
 
 def prior_sample_at(x: torch.Tensor, state: RFFState,
                     params: HyperParams) -> torch.Tensor:
-    """Evaluate the s fixed prior function samples at x: (n, s)."""
-    return rff_features(x, state, params) @ state.w
+    """Evaluate the s fixed prior function samples at x: (n, s).
+
+    ``phi(x) @ w`` over chunks of :data:`PRIOR_ROW_CHUNK` rows, so the
+    feature matrix never exists for all n rows at once (n x 2m fp32 is
+    13 GB at 1.66 M rows and 1000 pairs); each row's arithmetic is the
+    reference's.
+    """
+    chunk = PRIOR_ROW_CHUNK
+    return torch.cat([rff_features(x[i:i + chunk], state, params) @ state.w
+                      for i in range(0, max(x.shape[0], 1), chunk)])

@@ -15,12 +15,16 @@ and ``csrc/kernel_mvm_bwd.cu``.
 
 * :func:`kernel_mvm_cuda` and :func:`kernel_mvm_bwd_cuda` launch the
   hand-written kernels on CUDA tensors (and raise on anything else). They
-  count their launches in :data:`LAUNCHES`, and the calls that took their
-  second pass (the split sum) in :data:`SECOND_PASSES`.
-  :func:`kernel_mvm_bwd_fused_cuda` is the fused call: it builds the
-  concatenated operands and launches the backward kernel once.
+  take any d and s: each kernel has a second path for large d, and the
+  backward wrapper splits the columns of (g, v) over launches where its
+  row tiles would not fit in shared memory. They count their launches in
+  :data:`LAUNCHES`, and the launches that took their second pass (the
+  split sum) in :data:`SECOND_PASSES`. :func:`kernel_mvm_bwd_fused_cuda`
+  is the fused call: it builds the concatenated operands and launches the
+  backward kernel once (once per column chunk).
 * :func:`split_plan` and :func:`bwd_split_plan` pick how many column splits
-  each kernel runs, from the shapes and the card's SM count.
+  each kernel runs, from the shapes and the card's SM count;
+  :func:`bwd_s_chunks` the backward's column chunks of (g, v).
 * :func:`kernel_mvm_plain` and :func:`kernel_mvm_bwd_plain` are the same
   functions in plain tiled PyTorch, with ``r2`` by direct differences as in
   the kernels.
@@ -76,13 +80,20 @@ SECOND_PASSES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
 # pads them; for planning splits and rejecting shapes before the launch.
 FWD_BM, FWD_BN, FWD_MAX_NT = 128, 128, 9
 # Geometry of csrc/kernel_mvm_bwd.cu: 128-row blocks, 64-row column tiles,
-# d <= 96 (16-coordinate groups of registers), row strides padded as the
-# kernel pads them; the fused call pads s' to a multiple of 8 (one mma
-# k-step, and 16-byte rows for the copies).
+# row strides padded as the kernel pads them. Its per-thread sums hold up
+# to 96 coordinates; for d > 96 its wide path stages u and w 96
+# coordinates at a time, so shared memory is then d = 96's. g's and v's
+# row tiles sit in shared memory whole, which bounds s per launch
+# (:func:`bwd_s_chunks`). The fused call pads s' to a multiple of 8 (one
+# mma k-step, and 16-byte rows for the copies).
 BWD_BM, BWD_BN = 128, 64
-_BWD_MAX_D = 96
+_BWD_DC = 96
 _FUSED_S_MULTIPLE = 8
 _MAX_SMEM_BYTES = 232_448
+# The kernels hold each dimension, and the row counts rounded up to their
+# 128-row tiles, in 32-bit ints; every element offset (n*d, n*s, m*s,
+# splits*n*s) is formed in 64 bits.
+_INT32_LIMIT = 2**31
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -366,16 +377,28 @@ def _library() -> ctypes.CDLL:
 # -- wrappers -----------------------------------------------------------------
 
 
+def _padded_d(d: int) -> int:
+    """The kernels' row stride of u and w: d rounded up to 4, 4 mod 8."""
+    dp = -(-d // 4) * 4
+    return dp + 4 if dp % 8 == 0 else dp
+
+
 def _smem_bytes(d: int, s: int) -> int:
-    """Least dynamic shared memory of the forward kernel: the threads'
-    running sums, u's row tile and one (w, v) column-tile buffer, at the
-    kernel's padded row strides. (The kernel takes a second buffer where it
+    """Least dynamic shared memory of the forward kernel's first path: the
+    threads' running sums, u's row tile and one (w, v) column-tile buffer,
+    at the kernel's padded row strides. (It takes a second buffer where it
     fits, d <= 52.)"""
     nt = _fwd_nt(s)
-    dp = -(-d // 4) * 4
-    dp += 4 if dp % 8 == 0 else 0
     sp = 8 * (nt | 1)
+    dp = _padded_d(d)
     return 4 * (2 * nt * 4 * 2 * FWD_BM + FWD_BM * dp + FWD_BN * (dp + sp))
+
+
+def fwd_wide(d: int, s: int) -> bool:
+    """Whether the forward kernel takes its wide path at (d, s): where u's
+    row tile and one buffer do not fit in shared memory (d > 116 at
+    s >= 72), u and w are staged 64 coordinates at a time."""
+    return _smem_bytes(d, s) > _MAX_SMEM_BYTES
 
 
 @lru_cache(maxsize=None)
@@ -386,11 +409,31 @@ def _num_sms(index: int) -> int:
 def _bwd_smem_bytes(d: int, s: int) -> int:
     """Least dynamic shared memory of the backward kernel: g's and u's row
     tiles and one (w, v) column-tile buffer at the kernel's padded row
-    strides. (It takes a second buffer where that fits.)"""
-    dp = -(-d // 4) * 4
-    dp += 4 if dp % 8 == 0 else 0
+    strides, u and w at most 96 coordinates wide. (It takes a second
+    buffer where that fits.)"""
     sp = 8 * (-(-s // 8) | 1)
-    return 4 * (BWD_BM + BWD_BN) * (dp + sp)
+    return 4 * (BWD_BM + BWD_BN) * (_padded_d(min(d, _BWD_DC)) + sp)
+
+
+def _fused_width(s: int) -> int:
+    """s' of the fused call for s columns of g and v: 2s rounded up to 8."""
+    return -(-2 * s // _FUSED_S_MULTIPLE) * _FUSED_S_MULTIPLE
+
+
+@lru_cache(maxsize=4096)
+def bwd_s_chunks(d: int, s: int, fused: bool = False) -> tuple:
+    """Column ranges ``[lo, hi)`` of (g, v) that the backward kernel takes
+    one launch each: as few as keep every launch's operands within
+    :func:`_bwd_smem_bytes`, of near-equal width. ``fused`` counts each
+    column twice, as the fused call's ``[g | v]`` and ``[v | g]`` carry it
+    (a pair stays in one launch). D is a sum over the columns, so the
+    launches' du add up to the whole."""
+    q = (_MAX_SMEM_BYTES // (4 * (BWD_BM + BWD_BN))
+         - _padded_d(min(d, _BWD_DC))) // 8
+    widest = 8 * (q if q % 2 else q - 1)  # padded widths are odd multiples of 8
+    most = widest // 2 if fused else widest
+    count = max(1, -(-s // most))
+    return tuple((k * s // count, (k + 1) * s // count) for k in range(count))
 
 
 def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
@@ -414,6 +457,15 @@ def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} must be 2-D and contiguous")
 
 
+def _check_index_range(name: str, n: int, m: int, d: int, s: int) -> None:
+    """Raise where a value the kernels hold in a 32-bit int would overflow
+    (:data:`_INT32_LIMIT`): a dimension, or a row count rounded up to the
+    128-row tiles."""
+    if max(n + FWD_BM, m + FWD_BM, d, s) >= _INT32_LIMIT:
+        raise ValueError(f"{name}: n={n}, m={m}, d={d}, s={s} exceed the "
+                         "kernels' 32-bit index range")
+
+
 def _launch(name: str, fn, device: torch.device, *args) -> None:
     """Call one C entry point on the current stream; raise on its code."""
     with torch.cuda.device(device):
@@ -431,10 +483,11 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
 
     The column range is split as :func:`split_plan` says for the card's SM
     count; with more than one split the partial sums go to a workspace and
-    the kernel's second pass adds them in split order. Raises on inputs that
+    the kernel's second pass adds them in split order. Any d (the kernel's
+    wide path where :func:`fwd_wide`) and any s. Raises on inputs that
     require grad (forward only), on tensors that are not fp32, contiguous,
-    2-D CUDA tensors of one device, on mismatched shapes and on an unknown
-    kind.
+    2-D CUDA tensors of one device, on mismatched shapes, on an unknown
+    kind and past the 32-bit index range.
     """
     _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
     (n, d), (m, dw), (mv, s) = u.shape, w.shape, v.shape
@@ -443,10 +496,9 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                          f"w{tuple(w.shape)} v{tuple(v.shape)} do not match")
     if kind not in KIND_CODES:
         raise ValueError(f"kernel_mvm_cuda: no CUDA profile for {kind!r}")
-    if d == 0 or _smem_bytes(d, s) > _MAX_SMEM_BYTES:
-        raise ValueError(f"kernel_mvm_cuda: d={d} outside the kernel's range")
-    if max(n, m, s) >= 2**31:
-        raise ValueError("kernel_mvm_cuda: dimension exceeds int32")
+    if d == 0:
+        raise ValueError("kernel_mvm_cuda: d = 0")
+    _check_index_range("kernel_mvm_cuda", n, m, d, s)
     out = torch.empty((n, s), dtype=torch.float32, device=u.device)
     if n == 0 or s == 0:
         return out
@@ -467,8 +519,10 @@ def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     """Launch the backward tile kernel on CUDA tensors; (n, d) fp32 result.
 
     The same checks as :func:`kernel_mvm_cuda`, for u (n, d), w (m, d),
-    g (n, s) and v (m, s), with d <= 96 and s as far as shared memory
-    allows (s <= 200 at d = 96). The column range is split as
+    g (n, s) and v (m, s); any d (the kernel's wide path for d > 96) and
+    any s: where g's and v's row tiles would not fit in shared memory, the
+    columns go to one launch per chunk of :func:`bwd_s_chunks` and the du's
+    are added. Within a launch the column range is split as
     :func:`bwd_split_plan` says; with more than one split the partial sums
     go to a workspace and the kernel's second pass adds them in split order.
     """
@@ -478,15 +532,30 @@ def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         raise ValueError(
             f"kernel_mvm_bwd_cuda: shapes u{tuple(u.shape)} w{tuple(w.shape)} "
             f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
-    if kind not in KIND_CODES:
-        raise ValueError(f"kernel_mvm_bwd_cuda: no CUDA profile for {kind!r}")
-    if not 0 < d <= _BWD_MAX_D or _bwd_smem_bytes(d, s) > _MAX_SMEM_BYTES:
-        raise ValueError(f"kernel_mvm_bwd_cuda: d={d}, s={s} outside the "
-                         "kernel's range")
-    if max(n, m, s) >= 2**31:
-        raise ValueError("kernel_mvm_bwd_cuda: dimension exceeds int32")
+    _check_bwd(n, m, d, s, kind)
     if n == 0 or s == 0:
         return torch.zeros((n, d), dtype=torch.float32, device=u.device)
+    du = None
+    for lo, hi in bwd_s_chunks(d, s):
+        part = _bwd_launch(u, w, g[:, lo:hi].contiguous(),
+                           v[:, lo:hi].contiguous(), kind)
+        du = part if du is None else du.add_(part)
+    return du
+
+
+def _check_bwd(n: int, m: int, d: int, s: int, kind: str) -> None:
+    if kind not in KIND_CODES:
+        raise ValueError(f"kernel_mvm_bwd_cuda: no CUDA profile for {kind!r}")
+    if d == 0:
+        raise ValueError("kernel_mvm_bwd_cuda: d = 0")
+    _check_index_range("kernel_mvm_bwd_cuda", n, m, d, s)
+
+
+def _bwd_launch(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                v: torch.Tensor, kind: str) -> torch.Tensor:
+    """One launch of the backward kernel on checked operands whose row
+    tiles fit in shared memory."""
+    (n, d), m, s = u.shape, w.shape[0], g.shape[1]
     du = torch.empty((n, d), dtype=torch.float32, device=u.device)
     splits = bwd_split_plan(n, m, _num_sms(u.device.index))
     workspace = (torch.empty((splits, n, d), dtype=torch.float32,
@@ -506,8 +575,8 @@ def fused_operands(g: torch.Tensor, v: torch.Tensor) -> tuple:
     each, s' = 2s padded with zero columns to a multiple of 8 (a zero
     column adds nothing to the Gram)."""
     n, s = g.shape
-    width = -(-2 * s // _FUSED_S_MULTIPLE) * _FUSED_S_MULTIPLE
-    gv = torch.zeros((n, width), dtype=torch.float32, device=g.device)
+    gv = torch.zeros((n, _fused_width(s)), dtype=torch.float32,
+                     device=g.device)
     vg = torch.zeros_like(gv)
     gv[:, :s], gv[:, s:2 * s] = g, v
     vg[:, :s], vg[:, s:2 * s] = v, g
@@ -518,16 +587,25 @@ def kernel_mvm_bwd_fused_cuda(u: torch.Tensor, g: torch.Tensor,
                               v: torch.Tensor,
                               kind: str = "matern32") -> torch.Tensor:
     """``du + dw`` of ``kappa(u, u) @ v`` for the output cotangent ``g``:
-    one launch of the backward kernel on ``(u, u, [g | v], [v | g])``.
-    u (n, d), g and v (n, s) CUDA tensors; the checks of
-    :func:`kernel_mvm_bwd_cuda` apply at s' = 2s rounded up to 8."""
+    one launch of the backward kernel on ``(u, u, [g | v], [v | g])`` per
+    chunk of :func:`bwd_s_chunks` (``fused``: chunk k launches on
+    ``[g_k | v_k]``, ``[v_k | g_k]``), the du's added. u (n, d), g and v
+    (n, s) CUDA tensors; the checks of :func:`kernel_mvm_bwd_cuda`."""
     _check_inputs("kernel_mvm_bwd_fused_cuda", u=u, g=g, v=v)
     if g.shape != v.shape or g.shape[0] != u.shape[0]:
         raise ValueError(
             f"kernel_mvm_bwd_fused_cuda: shapes u{tuple(u.shape)} "
             f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
-    gv, vg = fused_operands(g, v)
-    return kernel_mvm_bwd_cuda(u, u, gv, vg, kind)
+    (n, d), s = u.shape, g.shape[1]
+    _check_bwd(n, n, d, _fused_width(s), kind)
+    if n == 0 or s == 0:
+        return torch.zeros((n, d), dtype=torch.float32, device=u.device)
+    du = None
+    for lo, hi in bwd_s_chunks(d, s, fused=True):
+        gv, vg = fused_operands(g[:, lo:hi], v[:, lo:hi])
+        part = _bwd_launch(u, u, gv, vg, kind)
+        du = part if du is None else du.add_(part)
+    return du
 
 
 def kernel_mvm_unit(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,

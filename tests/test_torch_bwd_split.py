@@ -264,3 +264,92 @@ def test_reset_clears_backward_second_pass_counts():
     tiled.SECOND_PASSES[tiled.BWD_KERNEL_NAME] = 2
     tiled.reset_launch_counts()
     assert tiled.SECOND_PASSES[tiled.BWD_KERNEL_NAME] == 0
+
+
+# -- the range: column chunks of (g, v), the wide paths, the index check -----
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("s", [1, 65, 130, 136, 200, 264, 272, 1000])
+@pytest.mark.parametrize("d", [3, 26, 77, 90, 96, 97, 120, 200])
+def test_bwd_s_chunks_fit_and_cover_every_column(d, s, fused):
+    """The chunks are contiguous, cover columns 0..s-1 once, and each
+    launch's operands (the fused call's [g_k | v_k] and [v_k | g_k]: a
+    column and its pair in one launch) fit in shared memory; one fewer
+    chunk of even width would not fit."""
+    chunks = tiled.bwd_s_chunks(d, s, fused)
+    assert chunks[0][0] == 0 and chunks[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(hi > lo for lo, hi in chunks)
+
+    def width(k):
+        return tiled._fused_width(k) if fused else k
+
+    limit = tiled._MAX_SMEM_BYTES
+    assert all(tiled._bwd_smem_bytes(d, width(hi - lo)) <= limit
+               for lo, hi in chunks)
+    if len(chunks) > 1:
+        fewer = -(-s // (len(chunks) - 1))
+        assert tiled._bwd_smem_bytes(d, width(fewer)) > limit
+
+
+def test_bwd_s_chunks_at_the_path_shapes():
+    """One launch at the GP gradient's widths of the paper's datasets (64
+    probes: s' = 130 at d = 3, 11, 26, 77, 90; 32 probes at d = 3), two at
+    s' = 272 (135 probes at d = 26) and at s = 272 in the standard roles."""
+    for d in (3, 11, 26, 77, 90):
+        assert len(tiled.bwd_s_chunks(d, 65, fused=True)) == 1
+    assert len(tiled.bwd_s_chunks(3, 33, fused=True)) == 1
+    assert tiled.bwd_s_chunks(26, 136, fused=True) == ((0, 68), (68, 136))
+    assert tiled.bwd_s_chunks(26, 272) == ((0, 136), (136, 272))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_bwd_chunked_plain_sum_equals_unchunked(kind):
+    """D is a sum over the columns of (g, v), so the backward's du summed
+    over the chunks of ``bwd_s_chunks`` equals the unchunked du within fp32
+    reassociation (1e-5 of the largest entry): in the standard roles at
+    s = 272 and as the fused call at s' = 272 (136 pairs, chunks of
+    [g_k | v_k], [v_k | g_k])."""
+    rng = np.random.default_rng(27)
+    u, w = (torch.tensor(0.3 * rng.normal(size=sh).astype(np.float32))
+            for sh in ((40, 26), (33, 26)))
+    g, v = (torch.tensor(rng.normal(size=sh).astype(np.float32))
+            for sh in ((40, 272), (33, 272)))
+    whole = tiled.kernel_mvm_bwd_plain(u, w, g, v, kind)
+    parts = sum(tiled.kernel_mvm_bwd_plain(u, w, g[:, lo:hi], v[:, lo:hi],
+                                           kind)
+                for lo, hi in tiled.bwd_s_chunks(26, 272))
+    assert (parts - whole).abs().max() <= 1e-5 * whole.abs().max()
+    g, v = g[:, :136], g[:, 136:]
+    whole = tiled.kernel_mvm_bwd_fused_unit(u, g, v, kind)
+    parts = sum(tiled.kernel_mvm_bwd_plain(u, u, *tiled.fused_operands(
+        g[:, lo:hi], v[:, lo:hi]), kind)
+        for lo, hi in tiled.bwd_s_chunks(26, 136, fused=True))
+    assert (parts - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+def test_fwd_wide_path_where_shared_memory_ends():
+    """The forward kernel takes its wide path exactly where u's row tile
+    and one buffer no longer fit beside the running sums: past d = 116 at
+    s >= 72 (s-chunks of 72), past d = 212 at s <= 8."""
+    limit = tiled._MAX_SMEM_BYTES
+    for d in (1, 26, 90, 116, 117, 120, 200, 212, 213, 1000):
+        for s in (1, 8, 65, 72, 130):
+            assert tiled.fwd_wide(d, s) == (tiled._smem_bytes(d, s) > limit)
+    assert not tiled.fwd_wide(116, 130) and tiled.fwd_wide(117, 65)
+    assert not tiled.fwd_wide(212, 1) and tiled.fwd_wide(213, 1)
+
+
+def test_index_range_check_rejects_int32_overflow():
+    """The wrappers refuse a dimension, or a row count rounded up to the
+    128-row tiles, that a 32-bit int cannot hold, and take the paper's
+    largest shapes (houseelectric's 1.66 M rows at s' = 136)."""
+    big = tiled._INT32_LIMIT
+    for n, m, d, s in ((big - 100, 5, 3, 4), (5, big - 1, 3, 4),
+                       (5, 5, big, 4), (5, 5, 3, big)):
+        with pytest.raises(ValueError, match="32-bit index range"):
+            tiled._check_index_range("kernel_mvm_cuda", n, m, d, s)
+    tiled._check_index_range("kernel_mvm_cuda", big - 129, big - 129, 200, 4)
+    tiled._check_index_range("kernel_mvm_bwd_cuda", 1_660_000, 1_660_000,
+                             11, 136)

@@ -40,8 +40,10 @@ def _cuda_or_skip():
 # Forward kernel shapes (n, m, d, s): short and long row counts against
 # the full pol column range and a ragged one, m < 64 and m = 0, one column,
 # the path's 65 and two s-chunks (129), d = 5 and 26, d = 90 (one tile
-# buffer: two do not fit in shared memory beyond d = 52), and the padded
-# pol slabs of AP (13000 x 1000 columns) and SGD (500 x 12500).
+# buffer: two do not fit in shared memory beyond d = 52), the padded
+# pol slabs of AP (13000 x 1000 columns) and SGD (500 x 12500), and the
+# wide path for large d (d = 120 and 200 at s = 65, split and not, and
+# d = 213 at s = 1; d = 200 at s = 1 still fits the first path).
 FWD_SHAPES = [
     (13000, 1000, 26, 65), (500, 12500, 26, 65),
     (1, 12150, 26, 65), (16, 12150, 26, 65), (64, 12150, 26, 65),
@@ -49,6 +51,8 @@ FWD_SHAPES = [
     (64, 277, 26, 65), (300, 277, 26, 65), (300, 50, 26, 65),
     (300, 0, 26, 65), (64, 277, 26, 1), (300, 277, 26, 129),
     (300, 277, 5, 65), (300, 277, 90, 65),
+    (300, 277, 120, 65), (300, 277, 200, 65), (64, 12150, 200, 65),
+    (300, 277, 213, 1), (300, 277, 200, 1), (300, 277, 120, 129),
 ]
 
 
@@ -121,13 +125,17 @@ def test_cuda_bwd_kernel_matches_plain(kind):
 # Backward kernel shapes (n, m, d, s): 1, 64, 300 and 12150 rows against
 # the full pol column range and a ragged one, m < 64 and m = 0, one column,
 # the path's s = 65 and the fused call's 130 (and 136 and 200 at the top of
-# the range), d = 5, 26, 90 and 96 (one tile buffer where two do not fit).
+# one launch's range), d = 5, 26, 90 and 96 (one tile buffer where two do
+# not fit); s = 272 and 208 (two launches over column chunks), and the
+# wide path for d > 96 (97, 120 and 200; split over 12150 columns).
 BWD_SHAPES = [
     (1, 12150, 26, 65), (64, 12150, 26, 65), (300, 12150, 26, 65),
     (12150, 277, 26, 65), (1, 277, 26, 65), (64, 277, 26, 65),
     (300, 50, 26, 65), (300, 0, 26, 65), (64, 277, 26, 1),
     (300, 277, 26, 130), (300, 277, 5, 65), (300, 277, 90, 65),
     (300, 277, 90, 136), (64, 277, 96, 200),
+    (300, 277, 26, 272), (64, 277, 96, 208), (300, 277, 97, 65),
+    (300, 277, 120, 65), (64, 277, 200, 130), (300, 12150, 120, 65),
 ]
 
 
@@ -201,15 +209,71 @@ def test_cuda_bwd_split_path_is_deterministic():
 
 @pytest.mark.cuda
 def test_cuda_bwd_rejects_shapes_outside_its_range():
-    """On a card: d > 96, or s beyond what shared memory holds, raise before
-    any launch."""
+    """On a card: the range is the reference's, so d = 97 and s = 208 at
+    d = 96 (once refused) run, in one launch and in two; what raises
+    before any launch is a wrong input: mismatched shapes, an unknown
+    kind, fp64, a CPU tensor, d = 0."""
     _cuda_or_skip()
-    before = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
-    for n, d, s in ((8, 97, 9), (8, 96, 208)):
+    for (n, d, s), launches in (((8, 97, 9), 1), ((8, 96, 208), 2)):
         u, w, g, v = _bwd_inputs(n, n, d, s)
-        with pytest.raises(ValueError, match="outside the kernel's range"):
-            tiled.kernel_mvm_bwd_cuda(u, w, g, v)
+        before = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
+        got = tiled.kernel_mvm_bwd_cuda(u, w, g, v)
+        assert got.shape == (n, d) and torch.isfinite(got).all()
+        assert tiled.launch_counts()[tiled.BWD_KERNEL_NAME] == before + launches
+    u, w, g, v = _bwd_inputs(8, 8, 5, 9)
+    before = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
+    bad = ((ValueError, (u, w[:7].contiguous(), g, v, "matern32")),
+           (ValueError, (u, w, g, v, "cosine")),
+           (TypeError, (u.double(), w, g, v, "matern32")),
+           (ValueError, (u.cpu(), w, g, v, "matern32")),
+           (ValueError, (u[:, :0].contiguous(), w[:, :0].contiguous(), g, v,
+                         "matern32")))
+    for exc, args in bad:
+        with pytest.raises(exc):
+            tiled.kernel_mvm_bwd_cuda(*args)
     assert tiled.launch_counts()[tiled.BWD_KERNEL_NAME] == before
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_past_the_int32_index_range():
+    """On a card: a row count whose round-up to the 128-row tiles passes
+    2**31 (2**31 - 64 rows, one coordinate, 8.6 GB each for u and g) is
+    refused by both wrappers before any launch or output allocation."""
+    _cuda_or_skip()
+    n = 2**31 - 64
+    u = torch.empty((n, 1), device="cuda")
+    w, v = torch.zeros((8, 1), device="cuda"), torch.zeros((8, 1), device="cuda")
+    before = tiled.launch_counts()
+    with pytest.raises(ValueError, match="32-bit index range"):
+        tiled.kernel_mvm_cuda(u, w, v)
+    g = torch.empty((n, 1), device="cuda")
+    with pytest.raises(ValueError, match="32-bit index range"):
+        tiled.kernel_mvm_bwd_cuda(u, w, g, v)
+    del u, g
+    torch.cuda.empty_cache()
+    assert tiled.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", [(26, 136), (120, 65), (200, 65)],
+                         ids=["d26_s136", "d120_s65", "d200_s65"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_bwd_fused_over_the_range(kind, d, s):
+    """On a card: the fused call where one launch's shared memory ends
+    (s' = 272 at d = 26: two launches on [g_k | v_k], [v_k | g_k]) and on
+    the wide path (d = 120, 200), against the plain version on the
+    unpadded operands, at the tolerances of ``chip_smoke.py``; one launch
+    counted per column chunk."""
+    _cuda_or_skip()
+    u, _, g, v = _bwd_inputs(700, 700, d, s, seed=5)
+    tiled.reset_launch_counts()
+    got = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind).double()
+    assert (tiled.LAUNCHES[tiled.BWD_KERNEL_NAME]
+            == len(tiled.bwd_s_chunks(d, s, fused=True)))
+    ref, tol = _bwd_ref(u, u, torch.cat([g, v], 1), torch.cat([v, g], 1),
+                        kind)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -66,6 +66,24 @@ Phases, each printing JSON lines:
    gradient (host clock between device synchronises), launch counts and
    peak memory; then the peak memory of the row-chunked RFF prior sample
    against the unchunked one at pol and houseelectric.
+8. lanes (since the lanes slice): (f) ``python -m repro_torch.launch.batch
+   --dataset pol --max-n 0 --kernels matern12,matern32,matern52,rbf
+   --seeds 2 --tolerances 0.01,0.05 --steps 10``, in this process: 4
+   groups x 4 lanes of CG (64 probes, the config's 10-epoch budget, no
+   preconditioner) at full pol; (g) AP (``--solver ap --block-size 1000
+   --epoch-budgets 5,10``) and SGD (``--solver sgd --batch-size 500
+   --sgd-lrs 30,70``) over 2 seeds at padded pol, Matérn-3/2; (h)
+   ``fit_batch(budget_policy=...)``, AP at padded pol, a 32-slot ring, 2
+   lanes, 10 steps. Per group: the launch counts (set to 0 just before the
+   group and read just after: one forward launch per lane-stacked MVM,
+   slab and gradient forward and one fused backward per step, whatever B
+   is), every lane against the single ``fit`` of its cell (steps whose
+   iteration count differs, hyperparameters held to
+   ``TOL_LANE_VS_SINGLE``), the batched step time beside the sum of the
+   single fits', and one lane-stacked step under ``torch.profiler``. The
+   kernels phase also holds both kernels at B = 4 lane by lane to their
+   plain versions (CG shape, AP and SGD slabs, the fused call at s' = 130
+   and 272) and times the CG shapes at B = 1 and 4.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -1044,6 +1062,341 @@ def phase_large_steps(torch, tiled) -> tuple:
     return totals, second_totals
 
 
+LANE_COUNTS = (1, 4)
+# Lane-batched kernel checks at B = 1 and 4 (label, n, m, d, s), each lane
+# held to the plain version of its operands and timed.
+LANE_FWD_SHAPES = (("cg", *CG_SHAPE), ("ap_col_slab", *AP_COL_SLAB_SHAPE),
+                   ("sgd_slab_padded", *SGD_SLAB_PADDED_SHAPE))
+LANE_BWD_SHAPES = (("cg_fused", 12150, 12150, 26, 65),
+                   ("cg_fused_s272", 12150, 12150, 26, 136))
+# A lane of a lane-stacked fit vs the single fit of its cell: the lanes'
+# launches plan their own splits, so sums run in another order and a CG
+# count at the tolerance may shift; the hyperparameters per step are held
+# to this relative error of the largest.
+TOL_LANE_VS_SINGLE = 1e-3
+BATCH_OUT = ROOT / "build" / "chip_smoke_batch"
+
+
+def phase_kernel_lanes(torch, tiled) -> dict:
+    """Both kernels on lane-stacked operands (Matérn-3/2) at B = 1 and 4:
+    each lane against the plain version of its operands at every shape of
+    LANE_FWD_SHAPES / LANE_BWD_SHAPES (one launch for all lanes, or one
+    per column chunk), timed per call and per lane, with the split count
+    each plans."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {tiled.KERNEL_NAME: {}, tiled.BWD_KERNEL_NAME: {}}
+    bad = []
+    for label, n, m, d, s in LANE_FWD_SHAPES + LANE_BWD_SHAPES:
+        fused = label.startswith("cg_fused")
+        name = tiled.BWD_KERNEL_NAME if fused else tiled.KERNEL_NAME
+        rec = {"phase": "kernel_lanes", "kernel": name, "shape": label,
+               "n": n, "m": m, "d": d, "s": s, "kind": "matern32"}
+        for lanes in LANE_COUNTS:
+            u = torch.randn((lanes, n, d), generator=gen, device="cuda")
+            if fused:
+                g = torch.randn((lanes, n, s), generator=gen, device="cuda")
+                v = torch.randn((lanes, n, s), generator=gen, device="cuda")
+
+                def call(u=u, g=g, v=v):
+                    return tiled.kernel_mvm_bwd_fused_cuda(u, g, v, "matern32")
+
+                def plain(i, u=u, g=g, v=v):
+                    return tiled.kernel_mvm_bwd_plain(
+                        u[i], u[i], torch.cat([g[i], v[i]], 1),
+                        torch.cat([v[i], g[i]], 1), "matern32")
+                splits = tiled.bwd_split_plan(n, n, sms, lanes)
+                tol = TOL_BWD_VS_PLAIN
+            else:
+                w = u if label == "cg" else torch.randn(
+                    (lanes, m, d), generator=gen, device="cuda")
+                v = torch.randn((lanes, m, s), generator=gen, device="cuda")
+
+                def call(u=u, w=w, v=v):
+                    return tiled.kernel_mvm_cuda(u, w, v, "matern32")
+
+                def plain(i, u=u, w=w, v=v):
+                    return tiled.kernel_mvm_plain(u[i], w[i], v[i], "matern32")
+                splits = tiled.split_plan(n, m, s, sms, lanes)
+                tol = TOL_VS_PLAIN
+            got = call()
+            torch.cuda.synchronize()
+            errs = []
+            for i in range(lanes if lanes > 1 else 1):
+                ref = plain(i)
+                errs.append((got[i] - ref).abs().max().item()
+                            / ref.abs().max().item())
+            key = f"B{lanes}"
+            rec[key] = {"splits": splits, "rel_err_per_lane": errs,
+                        "tol_rel": tol}
+            ms = time_ms(call, 10 if fused else 20)
+            rec[key].update({"ms": ms, "ms_per_lane": ms / lanes})
+            if not all(math.isfinite(e) and e <= tol for e in errs):
+                bad.append((label, lanes, errs))
+        emit(rec)
+        out[name][label] = {k: rec[k] for k in rec if k.startswith("B")}
+    if bad:
+        raise AssertionError(f"lane-stacked kernel checks failed: {bad}")
+    return out
+
+
+def _batch_args(**over) -> SimpleNamespace:
+    """The batch CLI's flags at their defaults, with ``over`` applied."""
+    from repro_torch.launch.batch import build_parser
+
+    args = build_parser().parse_args([])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def _argv(args) -> list:
+    """The batch CLI command line of ``args`` (flags that differ from the
+    defaults)."""
+    from repro_torch.launch.batch import build_parser
+
+    defaults = vars(build_parser().parse_args([]))
+    argv = []
+    for k, v in vars(args).items():
+        if v == defaults[k]:
+            continue
+        flag = "--" + k.replace("_", "-")
+        argv += [flag] if v is True else [flag, str(v)]
+    return argv
+
+
+def expected_lane_launches(tiled, cfg, results, d) -> dict:
+    """The launches of a lane-stacked fit: per step, one forward launch per
+    lane-stacked full MVM (CG: its iterations + 1; AP: the initial
+    residual), per AP/SGD slab (the loop's iterations, the largest lane's
+    count) and for the gradient's forward; one fused backward launch per
+    column chunk, whatever the lane count."""
+    h0 = results[0].history
+    steps = len(h0["iters"])
+    slabs = 0 if cfg.solver.name == "cg" else sum(
+        max(int(r.history["iters"][k]) for r in results) for k in range(steps))
+    chunks = len(tiled.bwd_s_chunks(d, cfg.num_probes + 1, fused=True))
+    return {tiled.KERNEL_NAME: int(h0["mvms"].sum()) + slabs + steps,
+            tiled.BWD_KERNEL_NAME: steps * chunks}
+
+
+def _profile_lanes_step(torch, states, x, y, cfg, nums, gens) -> dict:
+    """One lane-stacked outer step under ``torch.profiler``: wall time,
+    device busy time and idle share, kernel launches."""
+    from repro_torch.core.outer import outer_step_lanes
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, m = outer_step_lanes(states, x, y, cfg, numerics=nums,
+                                generators=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"window_wall_s": wall, "window_iters": m["iters"].tolist(),
+            "device_busy_s": busy if busy else "not measured",
+            "device_idle_share": 1.0 - busy / wall if busy else "not measured",
+            "device_kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _run_batch(torch, tiled, label, args) -> tuple:
+    """``python -m repro_torch.launch.batch`` in this process with the flags
+    of ``args``; per group, right after its ``fit_batch`` call: the launch
+    counts (set to 0 just before the group and read just after, held to
+    one forward launch per lane-stacked MVM, slab and gradient forward and
+    one fused backward per step, whatever B is), then every lane's single
+    ``fit`` with that cell's seed and numerics (per-step iterations and
+    hyperparameters held to the lane's), the step times and a profiled
+    lane-stacked step. Returns the groups' launch totals and problems."""
+    import numpy as np
+
+    from repro_torch.core.outer import stack_states
+    from repro_torch.launch import batch
+    from repro_torch.solvers import stack_numerics
+
+    shutil.rmtree(args.out, ignore_errors=True)
+    x, y = batch._load_data(batch.sweep_archs(
+        args.kernels.split(","), args.smoke), args)
+    totals = dict.fromkeys(tiled.LAUNCHES, 0)
+    second_totals = dict.fromkeys(tiled.SECOND_PASSES, 0)
+    problems, groups = [], []
+
+    def on_group(cfg, cells, results, seconds):
+        torch.cuda.synchronize()
+        launches = tiled.launch_counts()
+        second = dict(tiled.SECOND_PASSES)
+        h0 = results[0].history
+        steps = len(h0["iters"])
+        expected = expected_lane_launches(tiled, cfg, results, x.shape[1])
+        for k in tiled.LAUNCHES:
+            totals[k] += launches[k]
+            second_totals[k] += second[k]
+            if launches[k] == 0 or launches[k] != expected[k]:
+                problems.append(f"{label} {cfg.kind}: {k} launches "
+                                f"{launches[k]} != expected {expected[k]}")
+        batched_step_s = [float(t) * len(results) for t in h0["step_time_s"]]
+        lanes_rec, single_s = [], 0.0
+        for c, res in zip(cells, results):
+            one = batch.single_cell_fit(c, args, x, y)
+            single_s += float(one.history["step_time_s"].sum())
+            differ = int(np.sum(one.history["iters"] != res.history["iters"]))
+            a, b = one.history["hypers"], res.history["hypers"]
+            err = float(np.abs(a - b).max() / np.abs(a).max())
+            lanes_rec.append({"seed": c.seed, "tag": c.tag,
+                              "iters": res.history["iters"].tolist(),
+                              "single_iters": one.history["iters"].tolist(),
+                              "steps_iters_differ": differ,
+                              "hypers_rel_err": err,
+                              "final_res_y": float(res.history["res_y"][-1]),
+                              "final_res_z": float(res.history["res_z"][-1])})
+            finite = np.all(np.isfinite(b)) and np.all(np.isfinite(
+                res.history["res_y"]))
+            if not finite and cfg.solver.name != "sgd":
+                problems.append(f"{label} {cfg.kind} s{c.seed}{c.tag}: "
+                                "non-finite lane")
+            if not err <= TOL_LANE_VS_SINGLE and np.all(np.isfinite(a)):
+                problems.append(f"{label} {cfg.kind} s{c.seed}{c.tag}: lane "
+                                f"vs single hypers {err}")
+        states = stack_states([r.state for r in results])
+        nums = stack_numerics([batch.cell_numerics(c, args) for c in cells])
+        gens = [torch.Generator(device="cuda").manual_seed(c.seed + 1000)
+                for c in cells]
+        prof = _profile_lanes_step(torch, states, x, y, cfg, nums, gens)
+        rec = {"phase": "lanes", "run": label, "kernel": cfg.kind,
+               "solver": cfg.solver.name, "lanes": len(cells),
+               "n_train": int(x.shape[0]), "num_probes": cfg.num_probes,
+               "steps": steps, "group_s": seconds,
+               "batched_step_s": batched_step_s,
+               "batched_s_total": sum(batched_step_s),
+               "single_fits_s_total": single_s,
+               "launches": launches, "expected_launches": expected,
+               "fwd_second_pass_calls": second[tiled.KERNEL_NAME],
+               "bwd_second_pass_calls": second[tiled.BWD_KERNEL_NAME],
+               "lanes_vs_single": lanes_rec,
+               "steps_iters_differ_total": sum(r["steps_iters_differ"]
+                                               for r in lanes_rec),
+               "profiled_batched_step": prof}
+        emit(rec)
+        groups.append(rec)
+        tiled.reset_launch_counts()
+
+    tiled.reset_launch_counts()
+    rc = batch.main(_argv(args), on_group=on_group)
+    status = json.loads((Path(args.out) / "_sweep_status.json").read_text())
+    emit({"phase": "lanes", "run": label, "argv": _argv(args), "rc": rc,
+          "status": status})
+    if rc != 0 or status["failures"]:
+        problems.append(f"{label}: batch rc {rc}, failures "
+                        f"{status['failures']}")
+    if status["num_compiles"] != status["groups"] or not groups:
+        problems.append(f"{label}: {status['num_compiles']} fit_batch calls "
+                        f"for {status['groups']} groups")
+    return (totals, second_totals), problems
+
+
+def _budget_lanes(torch, tiled) -> tuple:
+    """Run (h): ``fit_batch(budget_policy=...)``, AP at padded pol
+    (1000-row blocks, 64 probes, pathwise, warm, tolerance 0.01, at most 10
+    epochs per step, a 32-slot residual ring), 2 lanes (seeds 0, 1), 10
+    steps; the allocation per lane and step, and each lane held to its
+    single ``fit(budget_policy=...)``."""
+    import numpy as np
+
+    from repro_torch.core.driver import fit, fit_batch
+    from repro_torch.core.outer import OuterConfig
+    from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
+    from repro_torch.solvers import SolverConfig
+    from repro_torch.solvers.adaptive import make_budget_policy
+
+    ds = load_dataset("pol", max_n=0, device="cuda")
+    x, y, _ = pad_to_block_multiple(ds.x_train, ds.y_train, 1000)
+    cfg = OuterConfig(estimator="pathwise", warm_start=True, num_probes=64,
+                      num_rff_pairs=1000, kind="matern32", num_steps=10,
+                      backend="cuda",
+                      solver=SolverConfig(name="ap", tolerance=0.01,
+                                          max_epochs=10.0, block_size=1000,
+                                          record_history=32))
+    policy = make_budget_policy()
+    tiled.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = fit_batch(x, y, cfg, [0, 1], budget_policy=policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tiled.launch_counts()
+    second = dict(tiled.SECOND_PASSES)
+    problems, recs = [], []
+    for seed, res in enumerate(lanes):
+        one = fit(x, y, cfg, generator=torch.Generator(device="cuda")
+                  .manual_seed(seed), budget_policy=policy, steps_per_round=0)
+        a, b = one.history["hypers"], res.history["hypers"]
+        err = float(np.abs(a - b).max() / np.abs(a).max())
+        rec = {"seed": seed,
+               "budget_alloc": res.history["budget_alloc"].tolist(),
+               "single_budget_alloc": one.history["budget_alloc"].tolist(),
+               "iters": res.history["iters"].tolist(),
+               "single_iters": one.history["iters"].tolist(),
+               "epochs": res.history["epochs"].tolist(),
+               "res_z": res.history["res_z"].tolist(),
+               "pred_to_tol": res.history["budget_pred_to_tol"].tolist(),
+               "hypers_rel_err": err}
+        recs.append(rec)
+        if not err <= TOL_LANE_VS_SINGLE:
+            problems.append(f"budget lane {seed} vs single hypers {err}")
+        if not np.all(np.isfinite(b)):
+            problems.append(f"budget lane {seed}: non-finite hypers")
+    expected = expected_lane_launches(tiled, cfg, lanes, x.shape[1])
+    emit({"phase": "lanes", "run": "h_budget_ap", "n_train": int(x.shape[0]),
+          "wall_s": wall, "launches": launches, "expected_launches": expected,
+          "fwd_second_pass_calls": second[tiled.KERNEL_NAME],
+          "bwd_second_pass_calls": second[tiled.BWD_KERNEL_NAME],
+          "lanes": recs})
+    for k in tiled.LAUNCHES:
+        if launches[k] == 0 or launches[k] != expected[k]:
+            problems.append(f"budget lanes: {k} launches {launches[k]} != "
+                            f"expected {expected[k]}")
+    return (launches, second), problems
+
+
+def phase_lanes(torch, tiled) -> list:
+    """Runs (f)-(h): the batch CLI at full pol over the kernel x seed x
+    tolerance grid (CG), then AP over seeds x epoch budgets and SGD over
+    seeds x learning rates at padded pol, then adaptive budget lanes."""
+    runs = {
+        "f_cg_kernels": _batch_args(
+            dataset="pol", max_n=0, kernels="matern12,matern32,matern52,rbf",
+            seeds=2, tolerances="0.01,0.05", steps=10, device="cuda",
+            out=str(BATCH_OUT / "f")),
+        "g_ap_budgets": _batch_args(
+            dataset="pol", max_n=0, kernels="matern32", solver="ap",
+            block_size=1000, seeds=2, epoch_budgets="5,10", steps=10,
+            device="cuda", out=str(BATCH_OUT / "g_ap")),
+        "g_sgd_lrs": _batch_args(
+            dataset="pol", max_n=0, kernels="matern32", solver="sgd",
+            batch_size=500, seeds=2, sgd_lrs="30,70", steps=10,
+            device="cuda", out=str(BATCH_OUT / "g_sgd")),
+    }
+    path_launches, problems = [], []
+    for label, args in runs.items():
+        launches, found = _run_batch(torch, tiled, label, args)
+        path_launches.append(launches)
+        problems += found
+    launches, found = _budget_lanes(torch, tiled)
+    path_launches.append(launches)
+    problems += found
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return path_launches
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -1121,8 +1474,10 @@ def main() -> int:
     path_launches = []
     phase_s = {"build": build_s}
     t_phase = time.perf_counter()
+    lane_kernels = {}
     try:
         fwd_entry = phase_kernels(torch, tiled, registry)
+        lane_kernels = phase_kernel_lanes(torch, tiled)
     except Exception:  # every phase runs; any failure fails the smoke
         traceback.print_exc()
         failures.append("kernels")
@@ -1171,6 +1526,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("large_steps")
     phase_s["large_steps"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        path_launches.extend(phase_lanes(torch, tiled))
+    except Exception:
+        traceback.print_exc()
+        failures.append("lanes")
+    phase_s["lanes"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)
@@ -1179,12 +1541,14 @@ def main() -> int:
         _kernel_entry(tiled.KERNEL_NAME, "src/repro_torch/csrc/kernel_mvm.cu",
                       "src/repro/kernels/tiled.py:98",
                       total(tiled.KERNEL_NAME), fwd_entry,
-                      second_pass_calls=total(tiled.KERNEL_NAME, 1)),
+                      second_pass_calls=total(tiled.KERNEL_NAME, 1),
+                      lanes=lane_kernels.get(tiled.KERNEL_NAME)),
         _kernel_entry(tiled.BWD_KERNEL_NAME,
                       "src/repro_torch/csrc/kernel_mvm_bwd.cu",
                       "src/repro/kernels/tiled.py:131",
                       total(tiled.BWD_KERNEL_NAME), bwd_entry,
-                      second_pass_calls=total(tiled.BWD_KERNEL_NAME, 1)),
+                      second_pass_calls=total(tiled.BWD_KERNEL_NAME, 1),
+                      lanes=lane_kernels.get(tiled.BWD_KERNEL_NAME)),
     ]
     emit({"phase": "timing", "phase_s": phase_s,
           "wall_s": time.perf_counter() - t_start})

@@ -1,16 +1,31 @@
-"""The paper's outer loop in the port: probes, gradients, Adam, fit, predict.
+"""The paper's outer loop in the port: probes, gradients, Adam, fit, the
+lane-batched fit, predict.
 
-``init_hypers_heuristic`` (the large-dataset initialisation) is exported
-here as in the reference. It is resolved on first access:
-``repro_torch.core.driver`` imports ``repro_torch.checkpoint``, which
-imports this package's modules, so an eager import here would be
+The public names of ``repro.core`` are exported here, resolved on first
+access: ``repro_torch.core.driver`` imports ``repro_torch.checkpoint``,
+which imports this package's modules, so an eager import here would be
 circular.
 """
 
+_EXPORTS = {
+    "OuterConfig": "outer", "OuterState": "outer",
+    "init_outer_state": "outer", "init_outer_state_lanes": "outer",
+    "outer_step": "outer", "outer_step_lanes": "outer",
+    "outer_step_budget": "outer", "outer_step_budget_lanes": "outer",
+    "outer_scan": "outer", "stack_states": "outer", "unstack_state": "outer",
+    "num_lanes": "outer", "extend_state": "outer", "grow_capacity": "outer",
+    "exact_outer_step": "outer",
+    "FitResult": "driver", "fit": "driver", "fit_batch": "driver",
+    "evaluate": "driver", "init_hypers_heuristic": "driver",
+    "pick_sgd_learning_rate": "driver",
+    "mean_only_predict": "predict", "pathwise_predict": "predict",
+}
+
 
 def __getattr__(name: str):
-    if name == "init_hypers_heuristic":
-        from repro_torch.core.driver import init_hypers_heuristic
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
 
-        return init_hypers_heuristic
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -1,11 +1,18 @@
-"""The fit loop with evaluation and checkpoints, the SGD learning-rate grid
-and the large-dataset initialisation heuristic; port of the single-lane
-part of ``repro.core.driver``.
+"""The fit loop with evaluation and checkpoints, the lane-batched fit, the
+SGD learning-rate grid and the large-dataset initialisation heuristic; port
+of ``repro.core.driver``.
 
-Runs ``cfg.num_steps`` outer steps one at a time, keeps the per-step
-history, evaluates on ``(x_test, y_test)`` every ``eval_every`` steps and
-checkpoints every ``ckpt_every`` steps and at the end, with the reference's
-restart semantics. The budget policy and lanes arrive with later slices.
+``fit`` runs ``cfg.num_steps`` outer steps in rounds of up to
+``steps_per_round`` (:func:`repro_torch.core.outer.outer_scan`: the
+metrics stay on the device within a round and are read once per round),
+never crossing an evaluation or checkpoint boundary, so the trajectory does
+not depend on the round size. It keeps the reference's per-step history
+(the solve and gradient time split by epoch accounting), evaluates on
+``(x_test, y_test)`` every ``eval_every`` steps, checkpoints every
+``ckpt_every`` steps and at the end with the reference's restart semantics,
+and takes the adaptive budget controller (``budget_policy=``).
+``fit_batch`` fits B lanes that share the data and the static config in
+one lane-stacked run.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import lanes as lanes_mod
 from repro_torch.checkpoint import (
     latest_step,
     load_metadata,
@@ -31,15 +39,25 @@ from repro_torch.core.estimators import (
 from repro_torch.core.outer import (
     OuterConfig,
     OuterState,
+    _host_metrics,
+    _require_history,
     effective_kind,
     init_outer_state,
-    outer_step,
+    init_outer_state_lanes,
+    num_lanes,
+    outer_scan,
+    unstack_state,
 )
 from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.gp.exact import exact_mll
 from repro_torch.gp.hyperparams import HyperParams
-from repro_torch.solvers import HOperator, solve
-from repro_torch.solvers.base import max_iters_from_epochs
+from repro_torch.solvers import HOperator, SolverNumerics, solve
+from repro_torch.solvers.adaptive import (
+    BudgetPolicy,
+    broadcast_policy,
+    resolve_horizon,
+)
+from repro_torch.solvers.base import broadcast_numerics, max_iters_from_epochs
 from repro_torch.solvers.sgd import draw_schedule
 from repro_torch.train.adam import AdamConfig, adam_init, adam_update
 
@@ -52,23 +70,98 @@ SGD_LR_GRID = [5.0, 10.0, 20.0, 30.0, 50.0, 60.0, 70.0, 80.0, 90.0, 100.0]
 # means both families grew past twice their start.
 SGD_DIVERGENCE_THRESHOLD = 4.0
 
+# Epoch-equivalents charged to gradient assembly when a round's time is
+# split into solve and gradient/Adam time (the reference's): the gradient's
+# forward touches every entry of H once, its backward ~twice more.
+GRAD_EPOCH_EQUIV = 3.0
+
+# Per-step history columns of a round (the reference's, plus the port's
+# ``mvms`` and ``host_syncs``), and the evaluation columns.
 HISTORY_KEYS = ("res_y", "res_z", "iters", "epochs", "mvms", "host_syncs",
-                "hypers", "grad_norm", "data_fit", "step_time_s")
+                "hypers", "grad_norm", "data_fit", "step_time_s",
+                "solver_frac_iters")
 EVAL_KEYS = ("eval_step", "eval_rmse", "eval_llh", "eval_mvms")
 
 
 @dataclass
 class FitResult:
-    """What `fit` returns: final state + per-step history."""
+    """What `fit`/`fit_batch` return: final state + per-step history."""
 
     state: OuterState
     history: dict  # str -> np.ndarray over steps (eval_* over evaluations)
     wall_time_s: float
+    solver_time_s: float = 0.0  # estimated inner-solve share (epochs)
+    grad_time_s: float = 0.0  # estimated gradient + Adam share
 
 
 def _sync(x: torch.Tensor) -> None:
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
+
+
+def _empty_history() -> dict:
+    return {k: [] for k in HISTORY_KEYS + EVAL_KEYS}
+
+
+def _round_size(step: int, num_steps: int, steps_per_round: int,
+                *boundaries: int) -> int:
+    """Steps to run this round: capped by ``steps_per_round`` (<= 0 means
+    all remaining) and never crossing an eval/checkpoint boundary."""
+    k = num_steps - step
+    if steps_per_round > 0:
+        k = min(k, steps_per_round)
+    for every in boundaries:
+        if every:
+            k = min(k, every - step % every)
+    return k
+
+
+def _append_round(history: dict, metrics: dict, dt: float, k: int,
+                  lane: Optional[int] = None) -> float:
+    """Append one round's host metrics (leading axis k steps, then the lane
+    axis when ``lane`` is given) to the per-step history; returns the
+    round's estimated solve time. The solve vs gradient/Adam split is the
+    reference's epoch accounting: each step's ``epochs`` against
+    :data:`GRAD_EPOCH_EQUIV` (``solver_frac_iters``). The residual rings
+    (``res_history``, time-ordered per step) and the ``budget_*`` columns
+    join the history when the metrics carry them."""
+    from repro_torch.solvers.base import unroll_history
+
+    def col(name, dtype=float):
+        a = np.asarray(metrics[name])
+        if lane is not None and a.ndim > 1:
+            a = a[:, lane]
+        return np.asarray(a, dtype=dtype)
+
+    epochs = col("epochs", np.float64)
+    frac = epochs / (epochs + GRAD_EPOCH_EQUIV)
+    iters = col("iters", int)
+    history["res_y"].extend(col("res_y"))
+    history["res_z"].extend(col("res_z"))
+    history["iters"].extend(iters)
+    history["epochs"].extend(epochs)
+    history["mvms"].extend(col("mvms", int))
+    history["host_syncs"].extend(col("host_syncs", int))
+    history["hypers"].extend(col("hypers", None))
+    history["grad_norm"].extend(col("grad_norm"))
+    history["data_fit"].extend(col("data_fit"))
+    history["step_time_s"].extend([dt / k] * k)
+    history["solver_frac_iters"].extend(frac)
+    if "res_history" in metrics:
+        rings = col("res_history", None)
+        history.setdefault("res_history", []).extend(
+            unroll_history(h, i) for h, i in zip(rings, iters))
+    for name in metrics:
+        if name.startswith("budget_"):
+            history.setdefault(name, []).extend(col(name))
+    return float(np.sum(dt / k * frac))
+
+
+def _no_event_log(event_log) -> None:
+    if event_log is not None:
+        raise NotImplementedError(
+            "event_log= needs the port of obs/ (ROADMAP Queue 1 item 4); "
+            "pass None")
 
 
 def fit(
@@ -85,6 +178,10 @@ def fit(
     ckpt_every: int = 0,
     resume: bool = True,
     verbose: bool = False,
+    steps_per_round: int = 8,
+    numerics: Optional[SolverNumerics] = None,
+    event_log=None,
+    budget_policy: Optional[BudgetPolicy] = None,
 ) -> FitResult:
     """Run ``cfg.num_steps`` outer MLL steps with optional eval/checkpoints.
 
@@ -95,16 +192,36 @@ def fit(
     ``state`` starts from a given state instead (e.g. the reference's
     initial state carried across by :mod:`repro_torch.interop`).
 
+    The steps run in rounds of up to ``steps_per_round`` (<= 0: all the
+    remaining steps), the metrics read once per round; a round never
+    crosses an evaluation or checkpoint boundary, and the trajectory does
+    not depend on the round size. ``step_time_s`` is the round's time
+    (host clock after a device synchronise) over its steps.
+
     Restart semantics (the reference's): if ``ckpt_dir`` holds a checkpoint
     and ``resume``, training continues from it, carry and probes included;
     the generator's state rides in the checkpoint's sidecar, so a resumed
     fit draws what an uninterrupted one would. Evaluation runs after every
     step that is a multiple of ``eval_every`` (when ``x_test`` is given),
     a checkpoint after every multiple of ``ckpt_every`` and one at the end.
-    Each step's time is taken on the host after a device synchronise.
+
+    ``numerics`` (scalar leaves) overrides the solver's numeric settings.
+    ``budget_policy`` (a scalar-leaf
+    :class:`repro_torch.solvers.adaptive.BudgetPolicy`) turns on the
+    adaptive budget controller: each step's ``max_epochs`` is its
+    allocation, calibrated from the solver's residual rings, which needs
+    ``cfg.solver.record_history >= 2`` (``ValueError`` otherwise); an
+    ``AUTO_HORIZON`` horizon becomes ``cfg.num_steps``, the history gains
+    the ``budget_*`` columns, and the policy rides across rounds on the
+    device. ``event_log`` waits for the port of ``obs/`` and must be None.
     """
+    _no_event_log(event_log)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
+    policy = budget_policy
+    if policy is not None:
+        _require_history(cfg)
+        policy = resolve_horizon(policy.to(x.device), cfg.num_steps)
     if state is None:
         state = init_outer_state(cfg, x, init_params=init_params,
                                  generator=generator)
@@ -118,21 +235,33 @@ def fit(
         save_checkpoint(ckpt_dir, step, state,
                         metadata={"generator": generator.get_state().tolist()})
 
-    history = {k: [] for k in HISTORY_KEYS + EVAL_KEYS}
+    history = _empty_history()
+    solver_time = 0.0
     t0 = time.perf_counter()
     while state.step < cfg.num_steps:
+        k = _round_size(state.step, cfg.num_steps, steps_per_round,
+                        eval_every if x_test is not None else 0,
+                        ckpt_every if ckpt_dir else 0)
         ts = time.perf_counter()
-        state, metrics = outer_step(state, x, y, cfg, generator=generator)
+        if policy is None:
+            state, metrics = outer_scan(state, x, y, cfg, k,
+                                        numerics=numerics,
+                                        generators=generator)
+        else:
+            (state, policy), metrics = outer_scan(
+                state, x, y, cfg, k, numerics=numerics, budget=policy,
+                generators=generator)
         _sync(state.carry_v)
-        metrics["step_time_s"] = time.perf_counter() - ts
-        for k in HISTORY_KEYS:
-            history[k].append(metrics[k])
+        dt = time.perf_counter() - ts
+        metrics = _host_metrics(metrics)
+        solver_time += _append_round(history, metrics, dt, k)
         step = state.step
         if eval_every and x_test is not None and step % eval_every == 0:
-            m = evaluate(x, state, cfg, x_test, y_test, generator=generator)
-            for k, val in (("eval_step", step), ("eval_rmse", m["rmse"]),
-                           ("eval_llh", m["llh"]), ("eval_mvms", m["mvms"])):
-                history[k].append(val)
+            m = evaluate(x, state, cfg, x_test, y_test, generator=generator,
+                         numerics=numerics)
+            for key, val in (("eval_step", step), ("eval_rmse", m["rmse"]),
+                             ("eval_llh", m["llh"]), ("eval_mvms", m["mvms"])):
+                history[key].append(val)
             if verbose:
                 print(f"[fit] step {step}: rmse={m['rmse']:.4f} "
                       f"llh={m['llh']:.4f}", flush=True)
@@ -140,14 +269,124 @@ def fit(
             checkpoint(step)
         if verbose:
             print(f"[fit] step {step}/{cfg.num_steps} "
-                  f"res_y={metrics['res_y']:.4f} res_z={metrics['res_z']:.4f} "
-                  f"iters={metrics['iters']} ({metrics['step_time_s']:.2f}s)",
+                  f"res_y={history['res_y'][-1]:.4f} "
+                  f"res_z={history['res_z'][-1]:.4f} "
+                  f"iters={history['iters'][-1]} ({dt:.2f}s/{k} steps)",
                   flush=True)
     if ckpt_dir:
         checkpoint(cfg.num_steps)
-    return FitResult(state=state,
-                     history={k: np.asarray(v) for k, v in history.items()},
-                     wall_time_s=time.perf_counter() - t0)
+    hist = {k: np.asarray(v) for k, v in history.items()}
+    return FitResult(state=state, history=hist,
+                     wall_time_s=time.perf_counter() - t0,
+                     solver_time_s=solver_time,
+                     grad_time_s=float(np.sum(hist["step_time_s"]))
+                     - solver_time)
+
+
+def _lane_generators(generators, device) -> list:
+    """One generator per lane: given, or seeded from ints on ``device``."""
+    return [g if isinstance(g, torch.Generator)
+            else torch.Generator(device=device).manual_seed(int(g))
+            for g in generators]
+
+
+def fit_batch(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    cfg: OuterConfig,
+    generators: Sequence,
+    init_params: Optional[HyperParams] = None,
+    states: Optional[OuterState] = None,
+    x_test: Optional[torch.Tensor] = None,
+    y_test: Optional[torch.Tensor] = None,
+    verbose: bool = False,
+    steps_per_round: int = 0,
+    numerics: Optional[SolverNumerics] = None,
+    event_log=None,
+    budget_policy: Optional[BudgetPolicy] = None,
+) -> list:
+    """Fit B scenario lanes sharing one dataset and static config in one
+    lane-stacked run: every solver iteration is one launch of each kernel
+    for all lanes, and every step one fused backward launch.
+
+    Lanes differ in their draws (``generators``: one ``torch.Generator``
+    or one int seed per lane, seeded per cell), optionally in their initial
+    hyperparameters (``init_params`` lane-stacked, or shared) or their
+    whole initial state (``states``, lane-stacked, e.g. the reference's
+    carried across by :mod:`repro_torch.interop`), and optionally in their
+    numeric solver settings (``numerics`` with (B,) leaves: a tolerance x
+    budget x lr grid). Lane l advances as ``fit`` with lane l's generator,
+    state and numerics would (the solvers' freeze mask).
+
+    ``steps_per_round <= 0`` (default) runs all steps in one round. No
+    checkpoints; per-lane eval once at the end when ``x_test`` is given.
+    Each lane's ``wall_time_s`` is the shared wall clock over B, and its
+    ``solver_time_s`` splits its share by its own epoch accounting.
+    ``budget_policy`` gives every lane the adaptive controller: scalar
+    leaves are broadcast, (B,) leaves give each lane its own pool, floor or
+    ceiling. There is no ``mesh=`` (sharding lanes over cards waits for the
+    distributed slice), and ``event_log`` must be None.
+    """
+    _no_event_log(event_log)
+    gens = _lane_generators(generators, x.device)
+    lanes = len(gens)
+    if states is None:
+        states = init_outer_state_lanes(cfg, x, gens, init_params=init_params)
+    if num_lanes(states) != lanes:
+        raise ValueError(f"{num_lanes(states)} lanes of states for "
+                         f"{lanes} generators")
+    if numerics is not None:
+        numerics = broadcast_numerics(numerics, lanes)
+    policy = budget_policy
+    if policy is not None:
+        _require_history(cfg)
+        policy = broadcast_policy(
+            resolve_horizon(policy, cfg.num_steps), lanes).to(x.device)
+    histories = [_empty_history() for _ in range(lanes)]
+    solver_times = [0.0] * lanes
+    t0 = time.perf_counter()
+    step = states.step
+    while step < cfg.num_steps:
+        k = _round_size(step, cfg.num_steps, steps_per_round)
+        ts = time.perf_counter()
+        if policy is None:
+            states, metrics = outer_scan(states, x, y, cfg, k, lanes=True,
+                                         numerics=numerics, generators=gens)
+        else:
+            (states, policy), metrics = outer_scan(
+                states, x, y, cfg, k, lanes=True, numerics=numerics,
+                budget=policy, generators=gens)
+        _sync(states.carry_v)
+        dt = time.perf_counter() - ts
+        metrics = _host_metrics(metrics)
+        for lane in range(lanes):
+            solver_times[lane] += _append_round(histories[lane], metrics,
+                                                dt / lanes, k, lane=lane)
+        step = states.step
+        if verbose:
+            print(f"[fit_batch] step {step}/{cfg.num_steps} x {lanes} lanes "
+                  f"({dt:.2f}s/{k} steps)", flush=True)
+    wall = time.perf_counter() - t0
+    results = []
+    for lane in range(lanes):
+        lane_state = unstack_state(states, lane)
+        hist = histories[lane]
+        if x_test is not None:
+            m = evaluate(x, lane_state, cfg, x_test, y_test,
+                         generator=gens[lane],
+                         numerics=None if numerics is None
+                         else lanes_mod.lane(numerics, lane))
+            hist["eval_step"].append(cfg.num_steps)
+            hist["eval_rmse"].append(m["rmse"])
+            hist["eval_llh"].append(m["llh"])
+            hist["eval_mvms"].append(m["mvms"])
+        hist = {k_: np.asarray(v) for k_, v in hist.items()}
+        results.append(FitResult(
+            state=lane_state, history=hist, wall_time_s=wall / lanes,
+            solver_time_s=solver_times[lane],
+            grad_time_s=float(np.sum(hist["step_time_s"]))
+            - solver_times[lane]))
+    return results
 
 
 def pick_sgd_learning_rate(
@@ -274,6 +513,7 @@ def evaluate(
     generator: Optional[torch.Generator] = None,
     eval_probes: Optional[ProbeState] = None,
     batch_idx: Optional[Sequence[int]] = None,
+    numerics: Optional[SolverNumerics] = None,
 ) -> dict:
     """Test RMSE / mean predictive LLH, and the H MVMs the eval solves took.
 
@@ -282,6 +522,7 @@ def evaluate(
     standard path (Fig. 1), from zero, with eval probes drawn from
     ``generator`` unless given (``eval_probes``), and SGD's schedule from
     it unless given (``batch_idx``); ``v_y`` comes from the carry.
+    ``numerics`` overrides the eval solves' numeric settings.
     """
     kind = effective_kind(cfg, state.params)
     with torch.no_grad():
@@ -302,7 +543,7 @@ def evaluate(
             scfg = (cfg.solver if cfg.solver.kind == kind
                     else replace(cfg.solver, kind=kind))
             res = solve(op, targets[:, 1:], None, scfg, batch_idx=batch_idx,
-                        generator=generator)
+                        generator=generator, numerics=numerics)
             v = torch.cat([state.carry_v[:, :1], res.v], dim=1)
             probes, mvms = eval_probes, res.mvms
         pred = pathwise_predict(x, x_test, v, probes, state.params, kind=kind)

@@ -7,7 +7,10 @@ Under warm starting the base draws are fixed once; only their
 reparameterisation in theta changes; without warm starting
 :func:`resample_probes` draws them afresh every outer step. A
 :class:`ProbeState` built directly
-from given draws is how the reference's draws are injected.
+from given draws is how the reference's draws are injected. Lanes carry a
+lane-stacked ProbeState (every draw with a leading B axis): each lane has
+its own base draws and its own hyperparameters, and its targets are built
+lane by lane in the 4096-row chunks of the prior sample.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import lanes
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.gp.rff import RFFState, init_rff, prior_sample_at
 
@@ -76,7 +80,12 @@ def resample_probes(generator: Optional[torch.Generator], probes: ProbeState,
 
 def probe_targets(probes: ProbeState, x: torch.Tensor,
                   params: HyperParams) -> torch.Tensor:
-    """Right-hand sides b_1..b_s (n, s) for the current hyperparameters."""
+    """Right-hand sides b_1..b_s (n, s) for the current hyperparameters;
+    (B, n, s) for lane-stacked probes and params."""
+    if params.lanes is not None:
+        return torch.stack([probe_targets(lanes.lane(probes, l), x,
+                                          params.lane(l))
+                            for l in range(params.lanes)])
     if probes.estimator == STANDARD:
         return probes.z
     return prior_sample_at(x, probes.rff, params) + params.noise * probes.w_eps
@@ -85,5 +94,18 @@ def probe_targets(probes: ProbeState, x: torch.Tensor,
 def build_system_targets(probes: ProbeState, x: torch.Tensor,
                          y: torch.Tensor,
                          params: HyperParams) -> torch.Tensor:
-    """Full batched RHS [y | b_1..b_s] of shape (n, 1+s)."""
-    return torch.cat([y[:, None], probe_targets(probes, x, params)], dim=1)
+    """Full batched RHS [y | b_1..b_s] of shape (n, 1+s); (B, n, 1+s) for
+    lanes (y shared)."""
+    b = probe_targets(probes, x, params)
+    return torch.cat([y[:, None].expand(*b.shape[:-1], 1), b], dim=-1)
+
+
+def expected_initial_sqdistance(probes: ProbeState,
+                                h_dense: torch.Tensor) -> float:
+    """Theory check (eqs. 14/15): E ||0 - u||_H^2 for a probe system:
+    tr(H^-1) for the standard estimator, n for the pathwise one (tests
+    only; needs a dense H)."""
+    n = h_dense.shape[0]
+    if probes.estimator == STANDARD:
+        return float(torch.trace(torch.linalg.inv(h_dense)))
+    return float(n)

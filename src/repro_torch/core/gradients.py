@@ -19,6 +19,11 @@ operator's backend:
   :func:`repro_torch.solvers.operator.kernel_mvm_tiled`, as the reference
   differentiates its twin for every backend. Autograd keeps a few (bm, bn)
   tiles per block pair, i.e. a few n^2 * 4 bytes.
+
+Lanes: with lane-stacked params, solutions and targets (B, n, 1+s) the
+surrogate is the sum of the lanes' own, so one reverse pass gives every
+lane its own gradient; under ``cuda`` that is one forward launch and one
+fused backward launch for all B lanes.
 """
 from __future__ import annotations
 
@@ -40,12 +45,20 @@ class GradAux(NamedTuple):
 
 
 def _weighted_quadratic(params, x, a, b, weights, kind, bm, bn, backend):
+    """The surrogate S per lane ((B,), or 0-d for one system)."""
+    noise_var = params.noise**2
     if backend == "cuda":
         kb = kernel_mvm(x, x, b, params, kind=kind)
+    elif params.lanes is not None:
+        kb = torch.stack([kernel_mvm_tiled(x, x, b[l], params.lane(l),
+                                           kind=kind, bm=bm, bn=bn)
+                          for l in range(params.lanes)])
     else:
         kb = kernel_mvm_tiled(x, x, b, params, kind=kind, bm=bm, bn=bn)
-    hb = kb + (params.noise**2) * b
-    return torch.sum(weights * torch.sum(a * hb, dim=0))
+    if params.lanes is not None:
+        noise_var = noise_var[:, None, None]
+    hb = kb + noise_var * b
+    return torch.sum(weights * torch.sum(a * hb, dim=-2), dim=-1)
 
 
 def mll_grad_estimate(
@@ -63,19 +76,20 @@ def mll_grad_estimate(
     """Stochastic gradient of L wrt the raw hyperparameters.
 
     Args:
-      v: (n, 1+s) solver solutions [v_y | v_1..v_s].
-      targets: (n, 1+s) right-hand sides [y | b_1..b_s].
+      v: (n, 1+s) solver solutions [v_y | v_1..v_s]; (B, n, 1+s) with
+        lane-stacked params.
+      targets: right-hand sides [y | b_1..b_s], shaped like ``v``.
       backend: the operator's backend; ``cuda`` differentiates the kernel
         pair, any other the plain tiled MVM (tiles ``bm`` x ``bn``).
     Returns:
       (grads as a `HyperParams` of raw-leaf gradients, `GradAux`)
     """
-    s = v.shape[1] - 1
+    s = v.shape[-1] - 1
     v = v.detach()
     targets = targets.detach()
     if estimator == STANDARD:
         a = v
-        b = torch.cat([v[:, :1], targets[:, 1:]], dim=1)
+        b = torch.cat([v[..., :1], targets[..., 1:]], dim=-1)
     elif estimator == PATHWISE:
         a = b = v
     else:
@@ -88,7 +102,17 @@ def mll_grad_estimate(
     with torch.enable_grad():
         quad = _weighted_quadratic(params.with_leaves(leaves), x, a, b,
                                    weights, kind, bm, bn, backend)
-        grads = torch.autograd.grad(quad, leaves)
-    data_fit = -0.5 * torch.sum(y * v[:, 0])
+        grads = torch.autograd.grad(quad.sum(), leaves)
+    data_fit = -0.5 * torch.sum(y * v[..., 0], dim=-1)
     return params.with_leaves(grads), GradAux(data_fit=data_fit,
                                               quad_value=quad.detach())
+
+
+def exact_grad_reference(x: torch.Tensor, y: torch.Tensor,
+                         params: HyperParams,
+                         kind: Optional[str] = None) -> HyperParams:
+    """Dense-Cholesky exact gradient of the MLL (the paper's reference;
+    tests only)."""
+    from repro_torch.gp.exact import exact_mll_grad
+
+    return exact_mll_grad(x, y, params, kind=kind)[1]

@@ -92,3 +92,11 @@ def predictive_metrics(y_test: torch.Tensor, pred: Predictions,
         "rmse": rmse(y_test, pred.mean),
         "llh": gaussian_loglik(y_test, pred.mean, var_y),
     }
+
+
+def mean_only_predict(x: torch.Tensor, xs: torch.Tensor, v_y: torch.Tensor,
+                      params: HyperParams,
+                      kind: Optional[str] = None) -> torch.Tensor:
+    """``k(xs, x) @ v_y``: the posterior mean for either estimator (no
+    variance), through the forward tile kernel."""
+    return kernel_mvm(xs, x, v_y[:, None], params, kind=kind)[:, 0]

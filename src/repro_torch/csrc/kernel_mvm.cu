@@ -78,6 +78,14 @@
 //    stage as zeros (a zero row of v contributes nothing), coordinates past
 //    d are zero in both u and w, and rows or columns past n or s are never
 //    stored.
+//  * Lanes. B independent systems (u, w, v stacked on a leading axis, as
+//    `vmap` of the TPU kernel adds a grid axis) take one launch: the lane
+//    is folded into the grid's y axis as blockIdx.y = lane * splits + z,
+//    each block offsets its operands by its lane in 64 bits, and the
+//    workspace is (splits, B, n, s), so the second pass adds B * n * s
+//    elements in split order. The split planner counts B times the row
+//    blocks, so more lanes take fewer splits; with B = 1 the launch is the
+//    single-system one.
 // Not done here (later work): a wgmma/TMA warp-specialised pipeline with V
 // pre-split in device memory, and persistent blocks.
 
@@ -400,17 +408,22 @@ __global__ void __launch_bounds__(THREADS, 4 / ROW_WARPS)
 kernel_mvm_fwd(const float* __restrict__ u, const float* __restrict__ w,
                const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ workspace, int n, int m, int d, int s,
-               int splits, int stages) {
+               int splits, int lanes, int stages) {
   constexpr int SC = 8 * NT, SP = padded_s(NT), ACC = 2 * NT * 4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tl = tid & 31, warp = tid >> 5;
+  const int g = tl >> 2, t = tl & 3;
   const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
   const int row0 = blockIdx.x * BM;
-  const int z = blockIdx.y;
+  const int lane = blockIdx.y / splits;
+  const int z = blockIdx.y - lane * splits;
   const int c0 = blockIdx.z * SC;
+  u += static_cast<long long>(lane) * n * d;
+  w += static_cast<long long>(lane) * m * d;
+  v += static_cast<long long>(lane) * m * s;
+  out += static_cast<long long>(lane) * n * s;
   Geometry geo;
   geo.dp = padded_d(d);
   geo.dk = (d + 3) & ~3;
@@ -476,7 +489,8 @@ kernel_mvm_fwd(const float* __restrict__ u, const float* __restrict__ w,
   if (jh == 1) return;
 
   store_sums<NT>(accs, splits > 1
-                            ? workspace + static_cast<long long>(z) * n * s
+                            ? workspace + (static_cast<long long>(z) * lanes +
+                                           lane) * n * s
                             : out,
                  row0 + rh * 32 + g, c0 + 2 * t, n, s);
 }
@@ -492,18 +506,23 @@ __global__ void __launch_bounds__(THREADS, 4 / ROW_WARPS)
 kernel_mvm_fwd_wide(const float* __restrict__ u, const float* __restrict__ w,
                     const float* __restrict__ v, float* __restrict__ out,
                     float* __restrict__ workspace, int n, int m, int d, int s,
-                    int splits) {
+                    int splits, int lanes) {
   constexpr int NT = MAX_NT;
   constexpr int SC = 8 * NT, SP = padded_s(NT), ACC = 2 * NT * 4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tl = tid & 31, warp = tid >> 5;
+  const int g = tl >> 2, t = tl & 3;
   const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
   const int row0 = blockIdx.x * BM;
-  const int z = blockIdx.y;
+  const int lane = blockIdx.y / splits;
+  const int z = blockIdx.y - lane * splits;
   const int c0 = blockIdx.z * SC;
+  u += static_cast<long long>(lane) * n * d;
+  w += static_cast<long long>(lane) * m * d;
+  v += static_cast<long long>(lane) * m * s;
+  out += static_cast<long long>(lane) * n * s;
   const int width = s - c0 < SC ? s - c0 : SC;
   const int dp = padded_d(DC);
   const int rows_u = n - row0 < BM ? n - row0 : BM;
@@ -552,12 +571,14 @@ kernel_mvm_fwd_wide(const float* __restrict__ u, const float* __restrict__ w,
   if (jh == 1) return;
 
   store_sums<NT>(accs, splits > 1
-                            ? workspace + static_cast<long long>(z) * n * s
+                            ? workspace + (static_cast<long long>(z) * lanes +
+                                           lane) * n * s
                             : out,
                  row0 + rh * 32 + g, c0 + 2 * t, n, s);
 }
 
-// out[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...
+// out[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...;
+// e runs over all lanes' outputs (B * n * s).
 __global__ void __launch_bounds__(256)
 kernel_mvm_fwd_reduce(const float* __restrict__ workspace,
                       float* __restrict__ out, long long ns, int splits) {
@@ -574,10 +595,10 @@ kernel_mvm_fwd_reduce(const float* __restrict__ workspace,
 // After the main kernel: the launch's error, and with splits > 1 the
 // second pass over the workspace.
 cudaError_t reduce_splits(const float* workspace, float* out, int n, int s,
-                          int splits, cudaStream_t stream) {
+                          int splits, int lanes, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long ns = static_cast<long long>(n) * s;
+  const long long ns = static_cast<long long>(lanes) * n * s;
   long long blocks = (ns + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
   kernel_mvm_fwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
@@ -588,7 +609,7 @@ cudaError_t reduce_splits(const float* workspace, float* out, int n, int s,
 template <int KIND, int NT>
 cudaError_t launch(const float* u, const float* w, const float* v, float* out,
                    float* workspace, int n, int m, int d, int s, int splits,
-                   cudaStream_t stream) {
+                   int lanes, cudaStream_t stream) {
   static size_t smem_set = 0;  // dynamic shared memory granted so far
   const int stages = smem_bytes(d, NT, 2) <= kMaxSmem ? 2 : 1;
   const size_t smem = smem_bytes(d, NT, stages);
@@ -605,17 +626,17 @@ cudaError_t launch(const float* u, const float* w, const float* v, float* out,
     smem_set = smem;
   }
   const int sc = 8 * NT;
-  const dim3 grid((n + BM - 1) / BM, splits, (s + sc - 1) / sc);
+  const dim3 grid((n + BM - 1) / BM, lanes * splits, (s + sc - 1) / sc);
   kern<<<grid, THREADS, smem, stream>>>(u, w, v, out, workspace, n, m, d, s,
-                                        splits, stages);
-  return reduce_splits(workspace, out, n, s, splits, stream);
+                                        splits, lanes, stages);
+  return reduce_splits(workspace, out, n, s, splits, lanes, stream);
 }
 
 // Wide path: one (w, v) buffer, u and w staged DC coordinates at a time.
 template <int KIND>
 cudaError_t launch_wide(const float* u, const float* w, const float* v,
                         float* out, float* workspace, int n, int m, int d,
-                        int s, int splits, cudaStream_t stream) {
+                        int s, int splits, int lanes, cudaStream_t stream) {
   static size_t smem_set = 0;  // dynamic shared memory granted so far
   const size_t smem = smem_bytes(DC, MAX_NT, 1);
   auto kern = kernel_mvm_fwd_wide<KIND>;
@@ -631,23 +652,23 @@ cudaError_t launch_wide(const float* u, const float* w, const float* v,
     smem_set = smem;
   }
   const int sc = 8 * MAX_NT;
-  const dim3 grid((n + BM - 1) / BM, splits, (s + sc - 1) / sc);
+  const dim3 grid((n + BM - 1) / BM, lanes * splits, (s + sc - 1) / sc);
   kern<<<grid, THREADS, smem, stream>>>(u, w, v, out, workspace, n, m, d, s,
-                                        splits);
-  return reduce_splits(workspace, out, n, s, splits, stream);
+                                        splits, lanes);
+  return reduce_splits(workspace, out, n, s, splits, lanes, stream);
 }
 
 template <int KIND>
 cudaError_t launch_kind(const float* u, const float* w, const float* v,
                         float* out, float* workspace, int n, int m, int d,
-                        int s, int splits, cudaStream_t stream) {
+                        int s, int splits, int lanes, cudaStream_t stream) {
 #define REPRO_NT_CASE(NT)                                                  \
   case NT:                                                                 \
     return launch<KIND, NT>(u, w, v, out, workspace, n, m, d, s, splits, \
-                            stream);
+                            lanes, stream);
   if (smem_bytes(d, num_nt(s), 1) > kMaxSmem)
     return launch_wide<KIND>(u, w, v, out, workspace, n, m, d, s, splits,
-                             stream);
+                             lanes, stream);
   switch (num_nt(s)) {
     REPRO_NT_CASE(1)
     REPRO_NT_CASE(2)
@@ -659,40 +680,43 @@ cudaError_t launch_kind(const float* u, const float* w, const float* v,
     REPRO_NT_CASE(8)
     default:
       return launch<KIND, MAX_NT>(u, w, v, out, workspace, n, m, d, s, splits,
-                                  stream);
+                                  lanes, stream);
   }
 #undef REPRO_NT_CASE
 }
 
 }  // namespace
 
-// Plain C interface (bound with ctypes). `workspace` holds splits * n * s
-// floats when splits > 1 and may be null otherwise. Any d and s. Returns 0
-// or a
-// cudaError_t code; -1 for an unknown kind, -2 for shapes or a split count
-// the kernel does not take.
+// Plain C interface (bound with ctypes). u, w, v and out hold `lanes`
+// systems back to back, (lanes, n, d) etc.; `workspace` holds
+// splits * lanes * n * s floats when splits > 1 and may be null otherwise.
+// Any d and s. Returns 0 or a cudaError_t code; -1 for an unknown kind, -2
+// for shapes, a lane count or a split count the kernel does not take
+// (lanes * splits is the grid's y extent, at most 65535).
 extern "C" int repro_kernel_mvm_fwd(const float* u, const float* w,
                                     const float* v, float* out,
                                     float* workspace, int n, int m, int d,
-                                    int s, int kind, int splits, void* stream) {
-  if (n <= 0 || m < 0 || d <= 0 || s <= 0) return -2;
+                                    int s, int kind, int splits, int lanes,
+                                    void* stream) {
+  if (n <= 0 || m < 0 || d <= 0 || s <= 0 || lanes < 1) return -2;
   const int tiles = (m + BN - 1) / BN;
-  if (splits < 1 || splits > 65535 || (splits > 1 && splits > tiles) ||
+  if (splits < 1 || splits > 65535 / lanes || (splits > 1 && splits > tiles) ||
       (splits > 1 && workspace == nullptr))
     return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kRbf:
-      return launch_kind<kRbf>(u, w, v, out, workspace, n, m, d, s, splits, st);
+      return launch_kind<kRbf>(u, w, v, out, workspace, n, m, d, s, splits,
+                               lanes, st);
     case kMatern12:
       return launch_kind<kMatern12>(u, w, v, out, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     case kMatern32:
       return launch_kind<kMatern32>(u, w, v, out, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     case kMatern52:
       return launch_kind<kMatern52>(u, w, v, out, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     default:
       return -1;
   }

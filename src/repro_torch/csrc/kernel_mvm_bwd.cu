@@ -95,6 +95,13 @@
 //    stage as zeros (their Gram and D are 0), rows of u and g past n stage
 //    as zeros and are never stored, coordinates past d and columns past s
 //    are zero in both operands.
+//  * Lanes. B independent systems (u, w, g, v stacked on a leading axis, as
+//    `vmap` of the TPU kernel adds a grid axis) take one launch: the lane
+//    is folded into the grid's y axis as blockIdx.y = lane * splits + z,
+//    each block offsets its operands by its lane in 64 bits, and the
+//    workspace is (splits, B, n, d). The fused call of B lanes is one
+//    launch on [g_l | v_l], [v_l | g_l]; the wrapper's column chunks split
+//    columns, never lanes. With B = 1 the launch is the single-system one.
 // Not done here (later work): a wgmma/TMA warp-specialised pipeline, and
 // operands pre-split in device memory.
 
@@ -423,17 +430,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 kernel_mvm_bwd(const float* __restrict__ u, const float* __restrict__ w,
                const float* __restrict__ g, const float* __restrict__ v,
                float* __restrict__ du, float* __restrict__ workspace, int n,
-               int m, int d, int s, int splits, int stages, int vec_w,
-               int vec_v) {
+               int m, int d, int s, int splits, int lanes, int stages,
+               int vec_w, int vec_v) {
   constexpr int NC = 4 * KQ;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
+  const int tl = tid & 31, warp = tid >> 5;
+  const int gq = tl >> 2, t = tl & 3;
   const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
   const int row0 = blockIdx.x * BM;
-  const int z = blockIdx.y;
+  const int lane = blockIdx.y / splits;
+  const int z = blockIdx.y - lane * splits;
+  u += static_cast<long long>(lane) * n * d;
+  w += static_cast<long long>(lane) * m * d;
+  g += static_cast<long long>(lane) * n * s;
+  v += static_cast<long long>(lane) * m * s;
+  du += static_cast<long long>(lane) * n * d;
   const int dp = padded_d(d), sp = padded_s(s);
   const int dk = (d + 3) & ~3;
   const int stage_len = BN * (dp + sp);
@@ -523,7 +536,9 @@ kernel_mvm_bwd(const float* __restrict__ u, const float* __restrict__ w,
   __syncthreads();
   if (jh == 1) return;
   float* dst = splits > 1
-                   ? workspace + static_cast<long long>(z) * n * d : du;
+                   ? workspace + (static_cast<long long>(z) * lanes + lane) *
+                                     n * d
+                   : du;
 #pragma unroll
   for (int c4 = 0; c4 < NC; ++c4) {
     const int k = 4 * c4 + t;
@@ -550,16 +565,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 kernel_mvm_bwd_wide(const float* __restrict__ u, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ v,
                     float* __restrict__ du, float* __restrict__ workspace,
-                    int n, int m, int d, int s, int splits, int vec_v) {
+                    int n, int m, int d, int s, int splits, int lanes,
+                    int vec_v) {
   constexpr int NC = 4 * KQ_MAX;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
+  const int tl = tid & 31, warp = tid >> 5;
+  const int gq = tl >> 2, t = tl & 3;
   const int rh = warp % ROW_WARPS, jh = warp / ROW_WARPS;
   const int row0 = blockIdx.x * BM;
-  const int z = blockIdx.y;
+  const int lane = blockIdx.y / splits;
+  const int z = blockIdx.y - lane * splits;
+  u += static_cast<long long>(lane) * n * d;
+  w += static_cast<long long>(lane) * m * d;
+  g += static_cast<long long>(lane) * n * s;
+  v += static_cast<long long>(lane) * m * s;
+  du += static_cast<long long>(lane) * n * d;
   const int kc = blockIdx.z, chunks = gridDim.z;
   const int k0 = kc * DC;
   const int dp = padded_d(DC), sp = padded_s(s);
@@ -648,7 +670,9 @@ kernel_mvm_bwd_wide(const float* __restrict__ u, const float* __restrict__ w,
   __syncthreads();
   if (jh == 1) return;
   float* dst = splits > 1
-                   ? workspace + static_cast<long long>(z) * n * d : du;
+                   ? workspace + (static_cast<long long>(z) * lanes + lane) *
+                                     n * d
+                   : du;
 #pragma unroll
   for (int c4 = 0; c4 < NC; ++c4) {
     const int k = k0 + 4 * c4 + t;
@@ -662,7 +686,8 @@ kernel_mvm_bwd_wide(const float* __restrict__ u, const float* __restrict__ w,
   }
 }
 
-// du[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...
+// du[e] = sum over z of workspace[z][e], in split order z = 0, 1, ...;
+// e runs over all lanes' outputs (B * n * d).
 __global__ void __launch_bounds__(256)
 kernel_mvm_bwd_reduce(const float* __restrict__ workspace,
                       float* __restrict__ du, long long nd, int splits) {
@@ -683,10 +708,10 @@ bool aligned16(const void* p) {
 // After the main kernel: the launch's error, and with splits > 1 the
 // second pass over the workspace.
 cudaError_t reduce_splits(const float* workspace, float* du, int n, int d,
-                          int splits, cudaStream_t stream) {
+                          int splits, int lanes, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long nd = static_cast<long long>(n) * d;
+  const long long nd = static_cast<long long>(lanes) * n * d;
   long long blocks = (nd + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
   kernel_mvm_bwd_reduce<<<static_cast<int>(blocks), 256, 0, stream>>>(
@@ -697,7 +722,7 @@ cudaError_t reduce_splits(const float* workspace, float* du, int n, int d,
 template <int KIND, int KQ>
 cudaError_t launch(const float* u, const float* w, const float* g,
                    const float* v, float* du, float* workspace, int n, int m,
-                   int d, int s, int splits, cudaStream_t stream) {
+                   int d, int s, int splits, int lanes, cudaStream_t stream) {
   static size_t smem_set = 0;  // dynamic shared memory granted so far
   const int stages = smem_bytes(d, s, 2) <= kMaxSmem ? 2 : 1;
   const size_t smem = smem_bytes(d, s, stages);
@@ -715,10 +740,10 @@ cudaError_t launch(const float* u, const float* w, const float* g,
   }
   const int vec_w = d % 4 == 0 && aligned16(w);
   const int vec_v = s % 4 == 0 && aligned16(v);
-  const dim3 grid((n + BM - 1) / BM, splits);
+  const dim3 grid((n + BM - 1) / BM, lanes * splits);
   kern<<<grid, THREADS, smem, stream>>>(u, w, g, v, du, workspace, n, m, d, s,
-                                        splits, stages, vec_w, vec_v);
-  return reduce_splits(workspace, du, n, d, splits, stream);
+                                        splits, lanes, stages, vec_w, vec_v);
+  return reduce_splits(workspace, du, n, d, splits, lanes, stream);
 }
 
 // The path for d > 96: one block per (row tile, split, 96 coordinates of
@@ -726,7 +751,8 @@ cudaError_t launch(const float* u, const float* w, const float* g,
 template <int KIND>
 cudaError_t launch_wide(const float* u, const float* w, const float* g,
                         const float* v, float* du, float* workspace, int n,
-                        int m, int d, int s, int splits, cudaStream_t stream) {
+                        int m, int d, int s, int splits, int lanes,
+                        cudaStream_t stream) {
   static size_t smem_set = 0;  // dynamic shared memory granted so far
   const size_t smem = smem_bytes(DC, s, 1);
   auto kern = kernel_mvm_bwd_wide<KIND>;
@@ -742,59 +768,65 @@ cudaError_t launch_wide(const float* u, const float* w, const float* g,
     smem_set = smem;
   }
   const int vec_v = s % 4 == 0 && aligned16(v);
-  const dim3 grid((n + BM - 1) / BM, splits, (d + DC - 1) / DC);
+  const dim3 grid((n + BM - 1) / BM, lanes * splits, (d + DC - 1) / DC);
   kern<<<grid, THREADS, smem, stream>>>(u, w, g, v, du, workspace, n, m, d, s,
-                                        splits, vec_v);
-  return reduce_splits(workspace, du, n, d, splits, stream);
+                                        splits, lanes, vec_v);
+  return reduce_splits(workspace, du, n, d, splits, lanes, stream);
 }
 
 template <int KIND>
 cudaError_t launch_kind(const float* u, const float* w, const float* g,
                         const float* v, float* du, float* workspace, int n,
-                        int m, int d, int s, int splits, cudaStream_t stream) {
+                        int m, int d, int s, int splits, int lanes,
+                        cudaStream_t stream) {
   if (d > DC)
     return launch_wide<KIND>(u, w, g, v, du, workspace, n, m, d, s, splits,
-                             stream);
+                             lanes, stream);
   switch ((d + 15) / 16) {
-    case 1: return launch<KIND, 1>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
-    case 2: return launch<KIND, 2>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
-    case 3: return launch<KIND, 3>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
-    case 4: return launch<KIND, 4>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
-    case 5: return launch<KIND, 5>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
-    default: return launch<KIND, KQ_MAX>(u, w, g, v, du, workspace, n, m, d, s, splits, stream);
+    case 1: return launch<KIND, 1>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
+    case 2: return launch<KIND, 2>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
+    case 3: return launch<KIND, 3>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
+    case 4: return launch<KIND, 4>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
+    case 5: return launch<KIND, 5>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
+    default: return launch<KIND, KQ_MAX>(u, w, g, v, du, workspace, n, m, d, s, splits, lanes, stream);
   }
 }
 
 }  // namespace
 
-// Plain C interface (bound with ctypes). `workspace` holds splits * n * d
-// floats when splits > 1 and may be null otherwise. Any d; s as far as
-// shared memory holds g's and v's tiles (the wrapper splits wider operands
-// over launches). Returns 0 or a cudaError_t code; -1 for an unknown kind,
-// -2 for shapes or a split count the kernel does not take.
+// Plain C interface (bound with ctypes). u, w, g, v and du hold `lanes`
+// systems back to back, (lanes, n, d) etc.; `workspace` holds
+// splits * lanes * n * d floats when splits > 1 and may be null otherwise.
+// Any d; s as far as shared memory holds g's and v's tiles (the wrapper
+// splits wider operands over launches). Returns 0 or a cudaError_t code; -1
+// for an unknown kind, -2 for shapes, a lane count or a split count the
+// kernel does not take (lanes * splits is the grid's y extent, at most
+// 65535).
 extern "C" int repro_kernel_mvm_bwd(const float* u, const float* w,
                                     const float* g, const float* v, float* du,
                                     float* workspace, int n, int m, int d,
-                                    int s, int kind, int splits, void* stream) {
-  if (n <= 0 || m < 0 || d <= 0 || s <= 0) return -2;
+                                    int s, int kind, int splits, int lanes,
+                                    void* stream) {
+  if (n <= 0 || m < 0 || d <= 0 || s <= 0 || lanes < 1) return -2;
   const int tiles = (m + BN - 1) / BN;
-  if (splits < 1 || splits > 65535 || (splits > 1 && splits > tiles) ||
+  if (splits < 1 || splits > 65535 / lanes || (splits > 1 && splits > tiles) ||
       (splits > 1 && workspace == nullptr))
     return -2;
   if (smem_bytes(d < DC ? d : DC, s, 1) > kMaxSmem) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kRbf:
-      return launch_kind<kRbf>(u, w, g, v, du, workspace, n, m, d, s, splits, st);
+      return launch_kind<kRbf>(u, w, g, v, du, workspace, n, m, d, s, splits,
+                               lanes, st);
     case kMatern12:
       return launch_kind<kMatern12>(u, w, g, v, du, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     case kMatern32:
       return launch_kind<kMatern32>(u, w, g, v, du, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     case kMatern52:
       return launch_kind<kMatern52>(u, w, g, v, du, workspace, n, m, d, s,
-                                    splits, st);
+                                    splits, lanes, st);
     default:
       return -1;
   }

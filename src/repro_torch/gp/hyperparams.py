@@ -89,10 +89,36 @@ class HyperParams(NamedTuple):
         )
 
     def flat(self) -> torch.Tensor:
-        """All constrained hyperparameters as one vector (for logging)."""
+        """All constrained hyperparameters as one vector (for logging);
+        (B, d + 2) for lane-stacked leaves."""
         return torch.cat(
-            [self.lengthscales, self.signal[None], self.noise[None]]
-        )
+            [self.lengthscales, self.signal[..., None], self.noise[..., None]],
+            dim=-1)
+
+    @property
+    def lanes(self) -> Optional[int]:
+        """The lane count of lane-stacked leaves ((B,) signal), or None for
+        one system's (scalar signal)."""
+        return self.raw_signal.shape[0] if self.raw_signal.ndim else None
+
+    def lane(self, index: int) -> "HyperParams":
+        """Lane ``index`` of lane-stacked leaves as one system's."""
+        return self.with_leaves([p[index] for p in self.leaves])
+
+    def lifted(self) -> "HyperParams":
+        """Lane-stacked leaves: these with B = 1 when they are one system's."""
+        if self.lanes is not None:
+            return self
+        return self.with_leaves([p[None] for p in self.leaves])
+
+
+def stack_params(params: list) -> HyperParams:
+    """Stack one-system `HyperParams` (one kernel name) on a lane axis."""
+    kernels = {p.kernel for p in params}
+    if len(kernels) != 1:
+        raise ValueError(f"lanes must share one kernel, got {sorted(kernels)}")
+    return params[0].with_leaves(
+        [torch.stack(leaves) for leaves in zip(*(p.leaves for p in params))])
 
 
 def resolve_kind(kind: Optional[str], params: HyperParams) -> str:

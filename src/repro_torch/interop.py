@@ -11,6 +11,13 @@ module never sees JAX). Layouts:
                 "w_eps"},
      "carry_v", "step"}
 
+A lane-stacked reference state (``init_outer_state_lanes``, ``vmap`` of
+``outer_step``) has the same layout with a leading lane axis on every
+array; its per-lane step counts must agree and become the port's shared
+``step``. ``numerics_from_numpy`` and ``policy_from_numpy`` take the
+fields of ``SolverNumerics`` and ``BudgetPolicy`` by name, scalar or
+lane-stacked.
+
 ``servable_from_numpy``::
 
     {"x", "correction", "rff": {...}, "params": {...}, "kind"}
@@ -47,6 +54,8 @@ from repro_torch.core.outer import OuterState
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.gp.rff import RFFState
 from repro_torch.serve.artifact import ServableGP
+from repro_torch.solvers.adaptive import BudgetPolicy
+from repro_torch.solvers.base import SolverNumerics
 from repro_torch.train.adam import AdamState
 
 
@@ -72,15 +81,24 @@ def _rff(tree: Optional[dict], device) -> Optional[RFFState]:
                     w=_t(tree["w"], device), kind=tree["kind"])
 
 
+def _step(a) -> int:
+    """A step count: a scalar, or the lanes' equal counts."""
+    steps = np.unique(np.asarray(a))
+    if steps.size != 1:
+        raise ValueError(f"lanes at different steps: {steps.tolist()}")
+    return int(steps[0])
+
+
 def outer_state_from_numpy(tree: dict, device="cpu") -> OuterState:
-    """The reference's ``OuterState`` (as numpy dicts) as the port's."""
+    """The reference's ``OuterState`` (as numpy dicts, scalar or
+    lane-stacked) as the port's."""
     params = _params(tree["params"], device)
     adam = tree["adam"]
     probes = tree["probes"]
     return OuterState(
         params=params,
         adam=AdamState(
-            step=int(adam["step"]),
+            step=_step(adam["step"]),
             mu=_params(adam["mu"], device, kernel=params.kernel),
             nu=_params(adam["nu"], device, kernel=params.kernel),
         ),
@@ -90,8 +108,19 @@ def outer_state_from_numpy(tree: dict, device="cpu") -> OuterState:
             w_eps=_t(probes.get("w_eps"), device),
         ),
         carry_v=_t(tree["carry_v"], device),
-        step=int(tree["step"]),
+        step=_step(tree["step"]),
     )
+
+
+def numerics_from_numpy(tree: dict, device="cpu") -> SolverNumerics:
+    """The reference's ``SolverNumerics`` (fields by name) as the port's."""
+    return SolverNumerics(*(_t(tree[f], device).to(torch.float32)
+                            for f in SolverNumerics._fields))
+
+
+def policy_from_numpy(tree: dict, device="cpu") -> BudgetPolicy:
+    """The reference's ``BudgetPolicy`` (fields by name) as the port's."""
+    return BudgetPolicy(*(_t(tree[f], device) for f in BudgetPolicy._fields))
 
 
 def servable_from_numpy(tree: dict, device="cpu") -> ServableGP:

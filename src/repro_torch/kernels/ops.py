@@ -19,7 +19,9 @@ are the hand-written kernels, on CPU tensors their plain versions. The
 lengthscale and signal gradients flow through the plain pre-scaling
 ``x / ell`` and post-scaling ``signal**2 * out``, as in the reference: one
 sweep over distance tiles serves every hyperparameter. Ragged n, m and s are
-masked inside the kernels, so nothing is padded here.
+masked inside the kernels, so nothing is padded here. Lane-stacked
+hyperparameters give lane-stacked operands (B, n, d): one launch of each
+kernel for all B lanes, and each lane's gradient flows to its own leaves.
 """
 from __future__ import annotations
 
@@ -66,24 +68,32 @@ def kernel_mvm(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
     ``x1``, ``x2``, ``v`` and the hyperparameters.
 
     Args:
-      x1: (n, d); x2: (m, d); v: (m, s) or (m,).
+      x1: (n, d); x2: (m, d); v: (m, s) or (m,). With lane-stacked
+        ``params`` ((B, d) lengthscales, (B,) signal) v is (B, m, s) and x1,
+        x2 are shared (n, d) or per lane (B, n, d): one launch of each
+        kernel serves all B lanes.
       kind: registered kernel name; defaults to ``params.kernel``.
     Returns:
-      (n, s) or (n,) in x1.dtype.
+      (n, s) or (n,) in x1.dtype; (B, n, s) for lanes.
     """
     kind = resolve_kind(kind, params)
     squeeze = v.ndim == 1
     if squeeze:
         v = v[:, None]
-    ell = params.lengthscales
+    ell, sig2 = params.lengthscales, params.signal**2
+    if params.lanes is not None:
+        ell, sig2 = ell.unsqueeze(-2), sig2.view(-1, 1, 1)
     u = (x1 / ell).to(torch.float32).contiguous()
     w = u if x2 is x1 else (x2 / ell).to(torch.float32).contiguous()
     out = _UnitMVM.apply(u, w, v.to(torch.float32).contiguous(), kind)
-    out = ((params.signal**2) * out).to(x1.dtype)
+    out = (sig2 * out).to(x1.dtype)
     return out[:, 0] if squeeze else out
 
 
 def h_mvm(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
           kind: Optional[str] = None) -> torch.Tensor:
     """H_theta @ v = K @ v + sigma^2 v via the distance-tile kernels."""
-    return kernel_mvm(x, x, v, params, kind=kind) + (params.noise**2) * v
+    noise_var = params.noise**2
+    if params.lanes is not None:
+        noise_var = noise_var[:, None, None]
+    return kernel_mvm(x, x, v, params, kind=kind) + noise_var * v

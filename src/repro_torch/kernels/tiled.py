@@ -37,6 +37,13 @@ and ``csrc/kernel_mvm_bwd.cu``.
   by the device of their inputs: the plain version for CPU tensors, the
   kernel for CUDA tensors. There is no fallback from one to the other.
 
+Every function takes one system (2-D operands) or B lanes of independent
+systems stacked on a leading axis (3-D operands, ``u`` (B, n, d) etc.), as
+``vmap`` of the reference's kernels adds a grid axis. A lane-stacked call is
+one launch of each kernel for all B lanes, planned from B times the row
+blocks (:func:`split_plan`, :func:`bwd_split_plan`); with B = 1 the plan and
+the launch are the single-system ones.
+
 The kernels are built from ``csrc/*.cu`` at first use with ``nvcc``
 (``sm_90a``; one compile per source, started together, then one link) into
 ``build/repro_torch_kernels/`` of the checkout, as one shared library with a
@@ -117,26 +124,29 @@ def launch_counts() -> dict:
 def kernel_mvm_plain(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                      kind: str = "matern32", bm: int = 512,
                      bn: int = 512) -> torch.Tensor:
-    """kappa(u, w) @ v in plain tiled PyTorch: (n,d),(m,d),(m,s) -> (n,s).
+    """kappa(u, w) @ v in plain tiled PyTorch: (n,d),(m,d),(m,s) -> (n,s),
+    or lane-stacked (B,n,d),(B,m,d),(B,m,s) -> (B,n,s).
 
     Same arithmetic as the kernel: ``r2`` by direct differences (exact zero
     at coincident points), the registry profile, an accumulation over column
     tiles. Works on any device and dtype, and under autograd.
     """
     kappa = get_kernel(kind).kappa_from_r2
-    n, m, s = u.shape[0], w.shape[0], v.shape[1]
+    n, m, s = u.shape[-2], w.shape[-2], v.shape[-1]
+    lead = u.shape[:-2]
     dtype = torch.result_type(u, v)
     rows = []
     for i in range(0, n, bm):
-        ui = u[i:i + bm]
-        acc = torch.zeros((ui.shape[0], s), dtype=dtype, device=u.device)
+        ui = u[..., i:i + bm, :]
+        acc = torch.zeros((*lead, ui.shape[-2], s), dtype=dtype,
+                          device=u.device)
         for j in range(0, m, bn):
-            diff = ui[:, None, :] - w[None, j:j + bn, :]
-            acc = acc + kappa(torch.sum(diff * diff, dim=-1)) @ v[j:j + bn]
+            diff = ui[..., :, None, :] - w[..., None, j:j + bn, :]
+            acc = acc + kappa(torch.sum(diff * diff, dim=-1)) @ v[..., j:j + bn, :]
         rows.append(acc)
     if not rows:
-        return torch.zeros((0, s), dtype=dtype, device=u.device)
-    return torch.cat(rows)
+        return torch.zeros((*lead, 0, s), dtype=dtype, device=u.device)
+    return torch.cat(rows, dim=-2)
 
 
 def kernel_mvm_bwd_plain(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -145,26 +155,30 @@ def kernel_mvm_bwd_plain(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     """Cotangent of ``u`` for ``kappa(u, w) @ v`` in plain tiled PyTorch.
 
     ``du_i = 2 sum_j D_ij (u_i - w_j)`` with ``D = (g v^T) * dkappa(r2)``:
-    (n,d),(m,d),(n,s),(m,s) -> (n,d). Same arithmetic as the kernel: ``r2``
-    by direct differences, the registry slope, the sum in difference form,
+    (n,d),(m,d),(n,s),(m,s) -> (n,d), or lane-stacked with a leading B axis
+    on every operand. Same arithmetic as the kernel: ``r2`` by direct
+    differences, the registry slope, the sum in difference form,
     accumulated over column tiles. Works on any device and dtype.
     """
     dkappa = get_kernel(kind).dkappa_dr2
-    n, d = u.shape
-    m = w.shape[0]
+    n, d = u.shape[-2:]
+    m = w.shape[-2]
+    lead = u.shape[:-2]
     dtype = torch.result_type(u, g)
     rows = []
     for i in range(0, n, bm):
-        ui, gi = u[i:i + bm], g[i:i + bm]
-        acc = torch.zeros((ui.shape[0], d), dtype=dtype, device=u.device)
+        ui, gi = u[..., i:i + bm, :], g[..., i:i + bm, :]
+        acc = torch.zeros((*lead, ui.shape[-2], d), dtype=dtype,
+                          device=u.device)
         for j in range(0, m, bn):
-            diff = ui[:, None, :] - w[None, j:j + bn, :]
-            dt = (gi @ v[j:j + bn].T) * dkappa(torch.sum(diff * diff, dim=-1))
-            acc = acc + torch.einsum("ij,ijk->ik", dt, diff)
+            diff = ui[..., :, None, :] - w[..., None, j:j + bn, :]
+            dt = ((gi @ v[..., j:j + bn, :].transpose(-1, -2))
+                  * dkappa(torch.sum(diff * diff, dim=-1)))
+            acc = acc + torch.einsum("...ij,...ijk->...ik", dt, diff)
         rows.append(2.0 * acc)
     if not rows:
-        return torch.zeros((0, d), dtype=dtype, device=u.device)
-    return torch.cat(rows)
+        return torch.zeros((*lead, 0, d), dtype=dtype, device=u.device)
+    return torch.cat(rows, dim=-2)
 
 
 # -- the forward kernel's plan, and a CPU mirror of its arithmetic ----------
@@ -180,38 +194,40 @@ def _fwd_grid(n: int, m: int, s: int) -> tuple:
     return (-(-n // FWD_BM), -(-s // (8 * _fwd_nt(s))), -(-m // FWD_BN))
 
 
-def _plan_splits(base: int, tiles: int, num_sms: int) -> int:
-    """Column splits for ``base`` blocks per split over ``tiles`` column
-    tiles, one block per SM at a time.
+def _plan_splits(base: int, tiles: int, num_sms: int, lanes: int = 1) -> int:
+    """Column splits for ``base`` blocks per split and lane over ``tiles``
+    column tiles, one block per SM at a time.
 
-    One split when there is at most one column tile, or when the base
-    blocks alone make two waves on ``num_sms`` SMs. Otherwise the count, up
-    to four waves of blocks, that minimises ``ceil(blocks / num_sms) *
-    ceil(tiles / splits)`` (the column tiles the busiest SM walks), the
-    smallest such count on ties.
+    The blocks of a split are ``base * lanes``. One split when there is at
+    most one column tile, or when those blocks alone make two waves on
+    ``num_sms`` SMs. Otherwise the count, up to four waves of blocks (and
+    ``lanes * splits`` within the grid's 65535), that minimises
+    ``ceil(blocks / num_sms) * ceil(tiles / splits)`` (the column tiles the
+    busiest SM walks), the smallest such count on ties.
     """
+    base *= lanes
     if tiles <= 1 or base >= 2 * num_sms:
         return 1
-    most = max(1, min(tiles, 65535, (4 * num_sms) // base))
+    most = max(1, min(tiles, 65535 // lanes, (4 * num_sms) // base))
     return min(range(1, most + 1),
                key=lambda k: (-(-base * k // num_sms)) * -(-tiles // k))
 
 
 @lru_cache(maxsize=4096)
-def split_plan(n: int, m: int, s: int, num_sms: int) -> int:
+def split_plan(n: int, m: int, s: int, num_sms: int, lanes: int = 1) -> int:
     """Number of column splits for the forward kernel at these shapes: its
-    base blocks are the row tiles times the s-chunks (:func:`_plan_splits`).
-    """
+    base blocks are the row tiles times the s-chunks, times the lanes
+    (:func:`_plan_splits`)."""
     rows, chunks, tiles = _fwd_grid(n, m, s)
-    return _plan_splits(rows * chunks, tiles, num_sms)
+    return _plan_splits(rows * chunks, tiles, num_sms, lanes)
 
 
 @lru_cache(maxsize=4096)
-def bwd_split_plan(n: int, m: int, num_sms: int) -> int:
+def bwd_split_plan(n: int, m: int, num_sms: int, lanes: int = 1) -> int:
     """Number of column splits for the backward kernel at these shapes: its
-    base blocks are the 128-row tiles of u, its column tiles 64 rows of w
-    (:func:`_plan_splits`)."""
-    return _plan_splits(-(-n // BWD_BM), -(-m // BWD_BN), num_sms)
+    base blocks are the 128-row tiles of u times the lanes, its column
+    tiles 64 rows of w (:func:`_plan_splits`)."""
+    return _plan_splits(-(-n // BWD_BM), -(-m // BWD_BN), num_sms, lanes)
 
 
 def split_tile_range(z: int, splits: int, tiles: int) -> tuple:
@@ -248,7 +264,15 @@ def kernel_mvm_mirror(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     V`` per tile with TF32 operands (:func:`_tf32_product`, ``passes`` 3 or
     1); each split's sum over its own tiles, and the splits summed in split
     order. ``splits`` defaults to :func:`split_plan` on an H100's 132 SMs.
+    Lane-stacked operands mirror each lane at the split count of the
+    lane-stacked launch (the lanes are independent in the kernel).
     """
+    if u.ndim == 3:
+        if splits is None:
+            splits = split_plan(u.shape[1], w.shape[1], v.shape[2], 132,
+                                u.shape[0])
+        return torch.stack([kernel_mvm_mirror(a, b, c, kind, splits, passes)
+                            for a, b, c in zip(u, w, v)])
     kappa = get_kernel(kind).kappa_from_r2
     n, m, s = u.shape[0], w.shape[0], v.shape[1]
     tiles = _fwd_grid(n, m, s)[2]
@@ -281,7 +305,15 @@ def kernel_mvm_bwd_mirror(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     each split's sum over its own tiles, and the splits summed in split
     order. ``splits`` defaults to :func:`bwd_split_plan` on an H100's 132
     SMs. With ``(u, u, [g | v], [v | g])`` it mirrors the fused call.
+    Lane-stacked operands mirror each lane at the split count of the
+    lane-stacked launch.
     """
+    if u.ndim == 3:
+        if splits is None:
+            splits = bwd_split_plan(u.shape[1], w.shape[1], 132, u.shape[0])
+        return torch.stack([kernel_mvm_bwd_mirror(a, b, c, e, kind, splits,
+                                                  passes)
+                            for a, b, c, e in zip(u, w, g, v)])
     dkappa = get_kernel(kind).dkappa_dr2
     n, d = u.shape
     m = w.shape[0]
@@ -361,11 +393,11 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
             fwd = lib.repro_kernel_mvm_fwd
-            fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             bwd = lib.repro_kernel_mvm_bwd
-            bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             bwd.restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -436,11 +468,14 @@ def bwd_s_chunks(d: int, s: int, fused: bool = False) -> tuple:
     return tuple((k * s // count, (k + 1) * s // count) for k in range(count))
 
 
-def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a 2-D contiguous fp32 CUDA tensor on one
+def _check_inputs(name: str, **tensors: torch.Tensor) -> int:
+    """Raise unless every tensor is a contiguous fp32 CUDA tensor on one
     device that does not require grad (the raw kernels are not
-    differentiable; :mod:`repro_torch.kernels.ops` wraps them)."""
+    differentiable; :mod:`repro_torch.kernels.ops` wraps them), all 2-D
+    (one system) or all 3-D with one lane count. Returns the lane count, 0
+    for 2-D operands."""
     first = next(iter(tensors.values()))
+    ndim = first.ndim
     for arg, t in tensors.items():
         if t.requires_grad:
             raise RuntimeError(
@@ -453,17 +488,24 @@ def _check_inputs(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs on different devices")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {arg} is {t.dtype}, not fp32")
-        if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be 2-D and contiguous")
+        if t.ndim not in (2, 3) or t.ndim != ndim or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous and 2-D, or "
+                             "3-D (lanes), like the other operands")
+        if ndim == 3 and t.shape[0] != first.shape[0]:
+            raise ValueError(f"{name}: {arg} has {t.shape[0]} lanes, not "
+                             f"{first.shape[0]}")
+    return first.shape[0] if ndim == 3 else 0
 
 
-def _check_index_range(name: str, n: int, m: int, d: int, s: int) -> None:
+def _check_index_range(name: str, n: int, m: int, d: int, s: int,
+                       lanes: int = 1) -> None:
     """Raise where a value the kernels hold in a 32-bit int would overflow
-    (:data:`_INT32_LIMIT`): a dimension, or a row count rounded up to the
-    128-row tiles."""
-    if max(n + FWD_BM, m + FWD_BM, d, s) >= _INT32_LIMIT:
-        raise ValueError(f"{name}: n={n}, m={m}, d={d}, s={s} exceed the "
-                         "kernels' 32-bit index range")
+    (:data:`_INT32_LIMIT`): a dimension, the lane count, or a row count
+    rounded up to the 128-row tiles; and past 65535 lanes (the grid's y
+    extent, which holds lanes times splits)."""
+    if max(n + FWD_BM, m + FWD_BM, d, s, lanes) >= _INT32_LIMIT or lanes > 65535:
+        raise ValueError(f"{name}: n={n}, m={m}, d={d}, s={s}, lanes={lanes} "
+                         "exceed the kernels' 32-bit index range")
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
@@ -479,18 +521,21 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
 
 def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                     kind: str = "matern32") -> torch.Tensor:
-    """Launch the forward tile kernel on CUDA tensors; (n, s) fp32 result.
+    """Launch the forward tile kernel on CUDA tensors; (n, s) fp32 result,
+    or (B, n, s) for lane-stacked (B, n, d), (B, m, d), (B, m, s) operands
+    (one launch for all lanes).
 
     The column range is split as :func:`split_plan` says for the card's SM
-    count; with more than one split the partial sums go to a workspace and
-    the kernel's second pass adds them in split order. Any d (the kernel's
-    wide path where :func:`fwd_wide`) and any s. Raises on inputs that
-    require grad (forward only), on tensors that are not fp32, contiguous,
-    2-D CUDA tensors of one device, on mismatched shapes, on an unknown
-    kind and past the 32-bit index range.
+    count and the lanes; with more than one split the partial sums go to a
+    (splits, B, n, s) workspace and the kernel's second pass adds them in
+    split order. Any d (the kernel's wide path where :func:`fwd_wide`) and
+    any s. Raises on inputs that require grad (forward only), on tensors
+    that are not fp32, contiguous, 2-D (or all 3-D) CUDA tensors of one
+    device, on mismatched shapes, on an unknown kind and past the 32-bit
+    index range.
     """
-    _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
-    (n, d), (m, dw), (mv, s) = u.shape, w.shape, v.shape
+    lanes = _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
+    (n, d), (m, dw), (mv, s) = u.shape[-2:], w.shape[-2:], v.shape[-2:]
     if d != dw or m != mv:
         raise ValueError(f"kernel_mvm_cuda: shapes u{tuple(u.shape)} "
                          f"w{tuple(w.shape)} v{tuple(v.shape)} do not match")
@@ -498,17 +543,19 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel_mvm_cuda: no CUDA profile for {kind!r}")
     if d == 0:
         raise ValueError("kernel_mvm_cuda: d = 0")
-    _check_index_range("kernel_mvm_cuda", n, m, d, s)
-    out = torch.empty((n, s), dtype=torch.float32, device=u.device)
-    if n == 0 or s == 0:
+    b = max(lanes, 1)
+    _check_index_range("kernel_mvm_cuda", n, m, d, s, b)
+    out = torch.empty((*u.shape[:-2], n, s), dtype=torch.float32,
+                      device=u.device)
+    if u.numel() == 0 or s == 0:
         return out
-    splits = split_plan(n, m, s, _num_sms(u.device.index))
-    workspace = (torch.empty((splits, n, s), dtype=torch.float32,
+    splits = split_plan(n, m, s, _num_sms(u.device.index), b)
+    workspace = (torch.empty((splits, b, n, s), dtype=torch.float32,
                              device=u.device) if splits > 1 else None)
     _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
             u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
             workspace.data_ptr() if workspace is not None else None,
-            n, m, d, s, KIND_CODES[kind], splits)
+            n, m, d, s, KIND_CODES[kind], splits, b)
     if splits > 1:
         SECOND_PASSES[KERNEL_NAME] += 1
     return out
@@ -516,7 +563,9 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
 
 def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                         v: torch.Tensor, kind: str = "matern32") -> torch.Tensor:
-    """Launch the backward tile kernel on CUDA tensors; (n, d) fp32 result.
+    """Launch the backward tile kernel on CUDA tensors; (n, d) fp32 result,
+    or (B, n, d) for lane-stacked operands (one launch per column chunk for
+    all lanes).
 
     The same checks as :func:`kernel_mvm_cuda`, for u (n, d), w (m, d),
     g (n, s) and v (m, s); any d (the kernel's wide path for d > 96) and
@@ -526,45 +575,47 @@ def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     :func:`bwd_split_plan` says; with more than one split the partial sums
     go to a workspace and the kernel's second pass adds them in split order.
     """
-    _check_inputs("kernel_mvm_bwd_cuda", u=u, w=w, g=g, v=v)
-    (n, d), (m, dw), (ng, s), (mv, sv) = u.shape, w.shape, g.shape, v.shape
+    lanes = _check_inputs("kernel_mvm_bwd_cuda", u=u, w=w, g=g, v=v)
+    (n, d), (m, dw) = u.shape[-2:], w.shape[-2:]
+    (ng, s), (mv, sv) = g.shape[-2:], v.shape[-2:]
     if d != dw or m != mv or n != ng or s != sv:
         raise ValueError(
             f"kernel_mvm_bwd_cuda: shapes u{tuple(u.shape)} w{tuple(w.shape)} "
             f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
-    _check_bwd(n, m, d, s, kind)
-    if n == 0 or s == 0:
-        return torch.zeros((n, d), dtype=torch.float32, device=u.device)
+    _check_bwd(n, m, d, s, kind, lanes)
+    if u.numel() == 0 or s == 0:
+        return torch.zeros(u.shape, dtype=torch.float32, device=u.device)
     du = None
     for lo, hi in bwd_s_chunks(d, s):
-        part = _bwd_launch(u, w, g[:, lo:hi].contiguous(),
-                           v[:, lo:hi].contiguous(), kind)
+        part = _bwd_launch(u, w, g[..., lo:hi].contiguous(),
+                           v[..., lo:hi].contiguous(), kind)
         du = part if du is None else du.add_(part)
     return du
 
 
-def _check_bwd(n: int, m: int, d: int, s: int, kind: str) -> None:
+def _check_bwd(n: int, m: int, d: int, s: int, kind: str, lanes: int) -> None:
     if kind not in KIND_CODES:
         raise ValueError(f"kernel_mvm_bwd_cuda: no CUDA profile for {kind!r}")
     if d == 0:
         raise ValueError("kernel_mvm_bwd_cuda: d = 0")
-    _check_index_range("kernel_mvm_bwd_cuda", n, m, d, s)
+    _check_index_range("kernel_mvm_bwd_cuda", n, m, d, s, max(lanes, 1))
 
 
 def _bwd_launch(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                 v: torch.Tensor, kind: str) -> torch.Tensor:
-    """One launch of the backward kernel on checked operands whose row
-    tiles fit in shared memory."""
-    (n, d), m, s = u.shape, w.shape[0], g.shape[1]
-    du = torch.empty((n, d), dtype=torch.float32, device=u.device)
-    splits = bwd_split_plan(n, m, _num_sms(u.device.index))
-    workspace = (torch.empty((splits, n, d), dtype=torch.float32,
+    """One launch of the backward kernel on checked operands (2-D, or 3-D
+    lanes) whose row tiles fit in shared memory."""
+    (n, d), m, s = u.shape[-2:], w.shape[-2], g.shape[-1]
+    lanes = u.shape[0] if u.ndim == 3 else 1
+    du = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    splits = bwd_split_plan(n, m, _num_sms(u.device.index), lanes)
+    workspace = (torch.empty((splits, lanes, n, d), dtype=torch.float32,
                              device=u.device) if splits > 1 else None)
     _launch(BWD_KERNEL_NAME, _library().repro_kernel_mvm_bwd, u.device,
             u.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(),
             du.data_ptr(),
             workspace.data_ptr() if workspace is not None else None,
-            n, m, d, s, KIND_CODES[kind], splits)
+            n, m, d, s, KIND_CODES[kind], splits, lanes)
     if splits > 1:
         SECOND_PASSES[BWD_KERNEL_NAME] += 1
     return du
@@ -572,14 +623,14 @@ def _bwd_launch(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 def fused_operands(g: torch.Tensor, v: torch.Tensor) -> tuple:
     """``([g | v | 0], [v | g | 0])`` for the fused backward call: (n, s')
-    each, s' = 2s padded with zero columns to a multiple of 8 (a zero
-    column adds nothing to the Gram)."""
-    n, s = g.shape
-    gv = torch.zeros((n, _fused_width(s)), dtype=torch.float32,
+    each (with the lanes' leading axis, if any), s' = 2s padded with zero
+    columns to a multiple of 8 (a zero column adds nothing to the Gram)."""
+    s = g.shape[-1]
+    gv = torch.zeros((*g.shape[:-1], _fused_width(s)), dtype=torch.float32,
                      device=g.device)
     vg = torch.zeros_like(gv)
-    gv[:, :s], gv[:, s:2 * s] = g, v
-    vg[:, :s], vg[:, s:2 * s] = v, g
+    gv[..., :s], gv[..., s:2 * s] = g, v
+    vg[..., :s], vg[..., s:2 * s] = v, g
     return gv, vg
 
 
@@ -590,19 +641,21 @@ def kernel_mvm_bwd_fused_cuda(u: torch.Tensor, g: torch.Tensor,
     one launch of the backward kernel on ``(u, u, [g | v], [v | g])`` per
     chunk of :func:`bwd_s_chunks` (``fused``: chunk k launches on
     ``[g_k | v_k]``, ``[v_k | g_k]``), the du's added. u (n, d), g and v
-    (n, s) CUDA tensors; the checks of :func:`kernel_mvm_bwd_cuda`."""
-    _check_inputs("kernel_mvm_bwd_fused_cuda", u=u, g=g, v=v)
-    if g.shape != v.shape or g.shape[0] != u.shape[0]:
+    (n, s) CUDA tensors, or all lane-stacked (B, ...): one launch per chunk
+    for all lanes, the chunks splitting columns, never lanes; the checks of
+    :func:`kernel_mvm_bwd_cuda`."""
+    lanes = _check_inputs("kernel_mvm_bwd_fused_cuda", u=u, g=g, v=v)
+    if g.shape != v.shape or g.shape[:-1] != u.shape[:-1]:
         raise ValueError(
             f"kernel_mvm_bwd_fused_cuda: shapes u{tuple(u.shape)} "
             f"g{tuple(g.shape)} v{tuple(v.shape)} do not match")
-    (n, d), s = u.shape, g.shape[1]
-    _check_bwd(n, n, d, _fused_width(s), kind)
-    if n == 0 or s == 0:
-        return torch.zeros((n, d), dtype=torch.float32, device=u.device)
+    (n, d), s = u.shape[-2:], g.shape[-1]
+    _check_bwd(n, n, d, _fused_width(s), kind, lanes)
+    if u.numel() == 0 or s == 0:
+        return torch.zeros(u.shape, dtype=torch.float32, device=u.device)
     du = None
     for lo, hi in bwd_s_chunks(d, s, fused=True):
-        gv, vg = fused_operands(g[:, lo:hi], v[:, lo:hi])
+        gv, vg = fused_operands(g[..., lo:hi], v[..., lo:hi])
         part = _bwd_launch(u, u, gv, vg, kind)
         du = part if du is None else du.add_(part)
     return du
@@ -631,6 +684,6 @@ def kernel_mvm_bwd_fused_unit(u: torch.Tensor, g: torch.Tensor,
     on ``(u, u, [g | v], [v | g])``: the CUDA kernel for CUDA tensors, the
     plain version for CPU ones."""
     if u.device.type == "cpu":
-        return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=1),
-                                    torch.cat([v, g], dim=1), kind=kind)
+        return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=-1),
+                                    torch.cat([v, g], dim=-1), kind=kind)
     return kernel_mvm_bwd_fused_cuda(u, g, v, kind=kind)

@@ -6,64 +6,98 @@ minibatch gradients: pick a row block, compute the batch gradient
 momentum step on the full vector, and refresh the running residual
 estimate ``r[blk] <- -g[blk]``. The estimate starts at ``b`` (stale under
 warm starts until refreshed); ``exact_final_residual`` spends one more
-epoch on an exact residual for reporting. A solve whose summed residual
-goes past ``divergence_threshold`` (or non-finite) stops. Batch 500,
+epoch on an exact residual for reporting. A lane whose summed residual
+goes past its ``divergence_threshold`` (or non-finite) freezes. Batch 500,
 momentum 0.9, no Polyak averaging (the paper's settings).
 
 The batch schedule is injectable: JAX's threefry draws cannot be replayed
-in torch, so ``batch_idx`` hands over one block index per iteration (how a
-test replays the reference's ``split``/``randint`` draws); otherwise the
-indices come from a ``torch.Generator``, :data:`SCHEDULE_CHUNK` at a time.
-With the index on the host the slab's ``start`` is a Python int, and the
-host reads the stopping rule once per iteration.
+in torch, so ``batch_idx`` hands over one block index per iteration and
+lane (how a test replays the reference's ``split``/``randint`` draws);
+otherwise each lane's indices come from its own ``torch.Generator``,
+:data:`SCHEDULE_CHUNK` at a time, and stay on the device. Each lane's rows
+are gathered into one (B, b, d) operand: one slab launch for all lanes.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.solvers.base import (
     SolveResult,
     SolverConfig,
+    SolverNumerics,
+    as_lanes,
     denormalise,
+    finish,
     history_init,
     history_record,
+    keep_going,
     lane_diverged,
-    max_iters_from_epochs,
+    masked,
     normalise_system,
     not_converged,
     residual_norms,
 )
 from repro_torch.solvers.operator import HOperator
 
-# Block indices drawn from a generator per device round trip. A solve to
-# tolerance may run up to MAX_SOLVER_ITERS iterations, so the schedule is
-# never drawn whole.
+# Block indices drawn from a generator per draw. A solve to tolerance may
+# run up to MAX_SOLVER_ITERS iterations, so the schedule is never drawn
+# whole.
 SCHEDULE_CHUNK = 1024
+
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 
 
 def draw_schedule(generator: Optional[torch.Generator], num_blocks: int,
                   count: int) -> list:
     """``count`` block indices in ``[0, num_blocks)`` from ``generator``
     (on its device), as Python ints."""
+    return _draw(generator, num_blocks, count).tolist()
+
+
+def _draw(generator: Optional[torch.Generator], num_blocks: int,
+          count: int) -> torch.Tensor:
     device = generator.device if generator is not None else "cpu"
     return torch.randint(0, num_blocks, (count,), generator=generator,
-                         device=device).tolist()
+                         device=device)
 
 
-def _schedule(batch_idx: Optional[Sequence[int]],
-              generator: Optional[torch.Generator], num_blocks: int,
-              max_iters: int) -> Iterator[int]:
-    if batch_idx is not None:
-        yield from (int(i) for i in batch_idx)
-        raise ValueError("batch_idx is shorter than the iterations run")
-    drawn = 0
-    while drawn < max_iters:
-        chunk = draw_schedule(generator, num_blocks,
-                              min(SCHEDULE_CHUNK, max_iters - drawn))
-        drawn += len(chunk)
-        yield from chunk
+class _Schedule:
+    """Each lane's block index per iteration: handed over (``batch_idx``,
+    (B, iters)) or drawn from the lanes' generators
+    :data:`SCHEDULE_CHUNK` at a time. One lane's index is a Python int (its
+    slab is then a view, as the host reads a chunk at a time); B lanes'
+    are a (B,) device tensor."""
+
+    def __init__(self, batch_idx, generators: list, num_blocks: int,
+                 max_iters: int, device):
+        self.lanes = len(generators)
+        self.given = None
+        if batch_idx is not None:
+            given = torch.as_tensor(np.asarray(batch_idx), dtype=torch.int64)
+            self.given = given.reshape(self.lanes, -1)
+            if self.lanes > 1:
+                self.given = self.given.to(device)
+            else:
+                self.given = self.given[0].tolist()
+        self.gens, self.nb, self.max_iters = generators, num_blocks, max_iters
+        self.device, self.chunk, self.lo = device, None, 0
+
+    def __call__(self, j: int):
+        if self.given is not None:
+            if j >= len(self.given[0] if self.lanes > 1 else self.given):
+                raise ValueError("batch_idx is shorter than the iterations run")
+            return self.given[:, j] if self.lanes > 1 else self.given[j]
+        if self.chunk is None or j >= self.lo + len(self.chunk[0]):
+            self.lo = j
+            count = min(SCHEDULE_CHUNK, self.max_iters - j)
+            drawn = [_draw(g, self.nb, count) for g in self.gens]
+            self.chunk = (torch.stack(drawn).to(self.device) if self.lanes > 1
+                          else [drawn[0].tolist()])
+        return (self.chunk[:, j - self.lo] if self.lanes > 1
+                else self.chunk[0][j - self.lo])
 
 
 def solve_sgd(
@@ -71,21 +105,25 @@ def solve_sgd(
     b: torch.Tensor,
     v0: Optional[torch.Tensor],
     cfg: SolverConfig,
-    batch_idx: Optional[Sequence[int]] = None,
-    generator: Optional[torch.Generator] = None,
+    batch_idx=None,
+    generator: Generators = None,
+    numerics: Optional[SolverNumerics] = None,
 ) -> SolveResult:
     """SGD with momentum on ``H V = b``.
 
     Args:
-      op: matrix-free `HOperator` for ``H = K(x, x) + sigma^2 I`` (n x n).
-      b: (n, t) right-hand sides ``[y | b_1..b_s]``.
-      v0: (n, t) warm start, or None for the zero cold start.
-      cfg: solver config; ``batch_size`` must divide n,
-        ``learning_rate``/``momentum`` drive the update.
-      batch_idx: block index (in ``[0, n / batch_size)``) of each iteration,
-        in order; at least as many as the iterations run.
-      generator: draws the schedule when ``batch_idx`` is None (torch's
-        default generator when both are None).
+      op: matrix-free `HOperator` for ``H = K(x, x) + sigma^2 I`` (n x n;
+        lane-stacked params for lanes).
+      b: (n, t) right-hand sides ``[y | b_1..b_s]``, or (B, n, t) lanes.
+      v0: warm start shaped like ``b``, or None for the zero cold start.
+      cfg: solver config; ``batch_size`` must divide n.
+      batch_idx: block index (in ``[0, n / batch_size)``) of each
+        iteration, in order ((B, iters) for lanes); at least as many as
+        the iterations run.
+      generator: draws the schedule when ``batch_idx`` is None: one
+        generator, or one per lane (torch's default generator when None).
+      numerics: tolerance, budget, learning rate, momentum and divergence
+        threshold, scalar or per lane (the config's when None).
     Returns:
       `SolveResult`; ``epochs = iters * batch_size / n`` (+1 with
       ``exact_final_residual``).
@@ -94,40 +132,64 @@ def solve_sgd(
     if n % bs != 0:
         raise ValueError(f"n={n} must be a multiple of batch_size={bs}")
     nb = n // bs
-    sysn = normalise_system(b, v0)
-    max_iters = max_iters_from_epochs(cfg.max_epochs, float(nb))
-    schedule = _schedule(batch_idx, generator, nb, max_iters)
-    hist = history_init(cfg, dtype=b.dtype, device=b.device)
-    step = cfg.learning_rate / bs
+    sysl = as_lanes(op, b, v0, cfg, numerics)
+    op, lanes, num = sysl.op, sysl.lanes, sysl.num
+    max_iters, cap = sysl.caps(float(nb))
+    gens = (list(generator) if isinstance(generator, (list, tuple))
+            else [generator] * lanes)
+    schedule = _Schedule(batch_idx, gens, nb, cap, b.device)
+    hist = history_init(cfg, lanes, dtype=b.dtype, device=b.device)
+    step = (num.learning_rate / bs).reshape(-1, 1, 1)
+    momentum = num.momentum.reshape(-1, 1, 1)
 
+    sysn = normalise_system(sysl.b, sysl.v0)
     bn = sysn.b
     v = sysn.v0
     m = torch.zeros_like(v)
     r = bn.clone()  # Alg. 3: r <- b
     res_y, res_z = residual_norms(r)
-    t = syncs = 0
-    while t < max_iters:
+    t = torch.zeros(lanes, dtype=torch.int32, device=b.device)
+    steps = syncs = 0
+    t_dim = bn.shape[-1]
+    while steps < cap:
+        go = not_converged(res_y, res_z, num.tolerance) & ~lane_diverged(
+            res_y, res_z, num.divergence_threshold)
+        active, run = keep_going(go, t, max_iters)
         syncs += 1
-        go = not_converged(res_y, res_z, cfg.tolerance) & ~lane_diverged(
-            res_y, res_z, cfg.divergence_threshold)
-        if not bool(go):
+        if not run:
             break
-        start = next(schedule) * bs
-        blk = slice(start, start + bs)
-        g = op.row_block_mvm(start, bs, v) - bn[blk]
+        start = schedule(steps) * bs
+        g = op.row_block_mvm(start, bs, v) - op._rows(bn, start, bs)
         # m <- rho m - (gamma / b) g on the full vector: outside the batch
         # the gradient is 0, so only the batch rows take the second term.
-        m.mul_(cfg.momentum)
-        m[blk] -= step * g
-        v = v + m
-        r[blk] = -g
-        res_y, res_z = residual_norms(r)
-        history_record(hist, t, res_y, res_z)
-        t += 1
-    epochs, mvms = t * bs / n, 0
+        if lanes == 1:  # an int start: the rows are views, updated in place
+            blk = slice(start, start + bs)
+            m.mul_(momentum)
+            m[:, blk] -= step * g
+            v = v + m
+            r[:, blk] = -g
+            res_y, res_z = residual_norms(r)
+            history_record(hist, steps, res_y, res_z, masked(active, 1))
+        else:
+            keep = masked(active, lanes)
+            rows = op.row_index(start, bs)
+            m_new = (momentum * m).reshape(-1, t_dim)
+            m_new = m_new.index_copy(
+                0, rows, m_new.index_select(0, rows)
+                - (step * g).reshape(-1, t_dim)).reshape(m.shape)
+            v_new = v + m_new
+            r_new = r.reshape(-1, t_dim).index_copy(
+                0, rows, -g.reshape(-1, t_dim)).reshape(r.shape)
+            ry, rz = residual_norms(r_new)
+            history_record(hist, steps, ry, rz, keep)
+            v, m, r = keep(v_new, v), keep(m_new, m), keep(r_new, r)
+            res_y, res_z = keep(ry, res_y), keep(rz, res_z)
+            t = t + active.to(torch.int32)
+        steps += 1
+    extra, mvms = 0.0, 0
     if cfg.exact_final_residual:
         res_y, res_z = residual_norms(bn - op.mvm(v))
-        epochs, mvms = epochs + 1.0, 1
-    return SolveResult(
-        v=denormalise(v, sysn.scale), res_y=res_y, res_z=res_z, iters=t,
-        epochs=epochs, mvms=mvms, host_syncs=syncs, res_history=hist)
+        extra, mvms = 1.0, 1
+    return finish(sysl, v=denormalise(v, sysn.scale), res_y=res_y,
+                  res_z=res_z, t=t, epochs_per_iter=bs / n, steps=steps,
+                  mvms=mvms, syncs=syncs, hist=hist, extra_epochs=extra)

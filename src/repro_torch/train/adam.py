@@ -1,7 +1,9 @@
 """Adam (Kingma & Ba) on `HyperParams` leaves; port of ``repro.train.adam``.
 
 Written out by hand rather than through ``torch.optim.Adam`` so the order of
-operations matches the reference step for step.
+operations matches the reference step for step. Lane-stacked leaves update
+elementwise, each lane as its own run (the step count is shared, and the
+gradient clip takes each lane's own norm).
 """
 from __future__ import annotations
 
@@ -40,9 +42,14 @@ def adam_init(params: HyperParams) -> AdamState:
     return AdamState(step=0, mu=zeros(), nu=zeros())
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of squares over all leaves."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+def global_norm(leaves, lanes: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares over all leaves; per lane ((B,)) for
+    lane-stacked leaves when ``lanes``."""
+    def sq(g):
+        g = torch.square(g.float())
+        return torch.sum(g, dim=tuple(range(1, g.ndim))) if lanes else torch.sum(g)
+
+    return torch.sqrt(sum(sq(g) for g in leaves))
 
 
 def adam_update(grads: HyperParams, state: AdamState, params: HyperParams,
@@ -55,9 +62,10 @@ def adam_update(grads: HyperParams, state: AdamState, params: HyperParams,
     if maximize:
         g_leaves = [-g for g in g_leaves]
     if cfg.grad_clip_norm > 0.0:
-        scale = torch.clamp_max(
-            cfg.grad_clip_norm / (global_norm(g_leaves) + 1e-12), 1.0)
-        g_leaves = [g * scale for g in g_leaves]
+        norm = global_norm(g_leaves, grads.lanes is not None)
+        scale = torch.clamp_max(cfg.grad_clip_norm / (norm + 1e-12), 1.0)
+        g_leaves = [g * scale.reshape(scale.shape + (1,) * (g.ndim - scale.ndim))
+                    for g in g_leaves]
 
     step = state.step + 1
     ref = params.raw_signal

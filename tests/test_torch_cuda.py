@@ -374,3 +374,104 @@ def test_cuda_ap_sgd_solve_matches_cpu(name):
     assert card.iters == cpu.iters == 24
     scale = cpu.v.abs().max().item()
     assert (card.v.cpu() - cpu.v).abs().max().item() <= 1e-4 * scale
+
+
+# Lanes: (label, n, m, d, s) of each kernel at B = 1 and 4 (one launch for
+# all lanes), held lane by lane to the plain version of that lane at the
+# kernels' tolerances: the CG shape, AP's padded-pol column slab and SGD's
+# row slab, a ragged shape and the wide path (d = 120); for the backward
+# also the fused call at s' = 130 and 272 (two launches per call).
+LANE_SHAPES = [("cg", 12150, 12150, 26, 65), ("ap_slab", 13000, 1000, 26, 65),
+               ("sgd_slab", 500, 12500, 26, 65), ("ragged", 1001, 777, 7, 9),
+               ("wide_d120", 8192, 8192, 120, 65)]
+
+
+def _lane_inputs(lanes, n, m, d, s, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 0.3 * (26.0 / d) ** 0.5
+
+    def rnd(*shape, k=1.0):
+        return k * torch.randn(shape, generator=gen, device="cuda")
+
+    return (rnd(lanes, n, d, k=scale), rnd(lanes, m, d, k=scale),
+            rnd(lanes, n, s), rnd(lanes, m, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("shape", LANE_SHAPES, ids=[s[0] for s in LANE_SHAPES])
+def test_cuda_fwd_lanes_match_plain(shape, lanes):
+    """On a card: the forward kernel on lane-stacked operands, one launch
+    for all lanes; each lane within 1e-5 of its largest output of the
+    plain version on that lane's operands (Matérn-3/2)."""
+    _cuda_or_skip()
+    _, n, m, d, s = shape
+    u, w, _, v = _lane_inputs(lanes, n, m, d, s, seed=lanes)
+    before = tiled.launch_counts()[tiled.KERNEL_NAME]
+    got = tiled.kernel_mvm_cuda(u, w, v, "matern32")
+    assert tiled.launch_counts()[tiled.KERNEL_NAME] == before + 1
+    assert got.shape == (lanes, n, s)
+    for i in range(lanes):
+        ref = tiled.kernel_mvm_plain(u[i], w[i], v[i], "matern32")
+        assert (got[i] - ref).abs().max().item() <= \
+            1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("shape", LANE_SHAPES + [("cg_fused", 12150, 12150, 26, 65),
+                                                 ("cg_fused_s272", 12150, 12150, 26, 136)],
+                         ids=[s[0] for s in LANE_SHAPES] + ["cg_fused", "cg_fused_s272"])
+def test_cuda_bwd_lanes_match_plain(shape, lanes):
+    """On a card: the backward kernel on lane-stacked operands (the fused
+    call for ``cg_fused*``: one launch per column chunk for all lanes,
+    s' = 130 and 272); each lane within 2e-5 of its largest output of the
+    plain version on that lane's operands (Matérn-3/2)."""
+    _cuda_or_skip()
+    label, n, m, d, s = shape
+    fused = label.startswith("cg_fused")
+    u, w, g, v = _lane_inputs(lanes, n, n if fused else m, d, s, seed=7 + lanes)
+    if fused:
+        v = torch.randn_like(g)
+        chunks = len(tiled.bwd_s_chunks(d, s, fused=True))
+        before = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
+        got = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, "matern32")
+        assert tiled.launch_counts()[tiled.BWD_KERNEL_NAME] == before + chunks
+        refs = [tiled.kernel_mvm_bwd_plain(u[i], u[i],
+                                           torch.cat([g[i], v[i]], 1),
+                                           torch.cat([v[i], g[i]], 1),
+                                           "matern32") for i in range(lanes)]
+    else:
+        got = tiled.kernel_mvm_bwd_cuda(u, w, g, v, "matern32")
+        refs = [tiled.kernel_mvm_bwd_plain(u[i], w[i], g[i], v[i], "matern32")
+                for i in range(lanes)]
+    assert got.shape == (lanes, n, d)
+    for i, ref in enumerate(refs):
+        assert (got[i] - ref).abs().max().item() <= \
+            2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_lane_solve_matches_single_solves():
+    """On a card: lane-stacked CG and AP of 3 lanes against each lane's
+    single solve on the card: equal iterations, solutions within 1e-3
+    relative (the lane-stacked launch plans its own splits)."""
+    _cuda_or_skip()
+    from repro_torch.gp.hyperparams import stack_params
+    from repro_torch.solvers import solve_lanes
+
+    x, b = _draws(21, (512, 5), (3, 512, 9))
+    singles = [_params(5, 22 + i, "matern32") for i in range(3)]
+    params = stack_params([p.with_leaves([q.cuda() for q in p.leaves])
+                           for p in singles])
+    xc, bc = torch.tensor(x, device="cuda"), torch.tensor(b, device="cuda")
+    for cfg in (SolverConfig(tolerance=0.01, max_epochs=200, precond_rank=20),
+                SolverConfig(name="ap", tolerance=0.01, max_epochs=50,
+                             block_size=64)):
+        res = solve_lanes(xc, params, bc, None, cfg, backend="cuda")
+        for i in range(3):
+            one = solve(HOperator(xc, params.lane(i), backend="cuda"), bc[i],
+                        None, cfg)
+            assert one.iters == int(res.iters[i])
+            rel = ((res.v[i] - one.v).norm() / one.v.norm()).item()
+            assert rel < 1e-3

@@ -194,9 +194,12 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Static: no ``jax``/``repro.*`` import in the port or chip_smoke.py.
-    Dynamic: every port module imports with ``jax`` and ``repro`` blocked."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Static: no ``jax``/``repro.*`` import in the port, chip_smoke.py or
+    the example twins (``examples/torch_*.py``). Dynamic: every port module
+    and every twin imports with ``jax`` and ``repro`` blocked."""
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert examples, "no example twins found"
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -208,11 +211,56 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
-            f"import importlib\nfor m in {modules!r}:\n"
+            f"import importlib, importlib.util\nfor m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for i, path in enumerate({[str(e) for e in examples]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_quickstart_twin_matches_reference_fit():
+    """``examples/torch_quickstart.py`` at a small size (300 rows of pol,
+    3 steps, eval at step 3) against a JAX ``fit`` with the reference
+    example's config on the same data, from the reference's initial state
+    (handed over): iterations equal per step, hyperparameters within rtol
+    1e-4 / atol 1e-6, the eval RMSE and LLH within rtol 1e-3."""
+    import importlib.util
+
+    from repro.data.synthetic import load_dataset as j_load
+    from repro.train.adam import AdamConfig as JAdamConfig
+    from repro_torch.data.synthetic import Dataset
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", REPO / "examples" / "torch_quickstart.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    args = twin.build_parser().parse_args(
+        ["--device", "cpu", "--max-n", "300", "--steps", "3",
+         "--eval-every", "3"])
+    ds = j_load("pol", max_n=300)
+    jcfg = JOuterConfig(
+        estimator="pathwise", warm_start=True, num_probes=32,
+        solver=JSolverConfig(name="cg", tolerance=0.01, max_epochs=200,
+                             precond_rank=50),
+        adam=JAdamConfig(learning_rate=0.1), num_steps=3, bm=512, bn=512)
+    key = jax.random.PRNGKey(0)
+    jres = j_fit(ds.x_train, ds.y_train, jcfg, key=key, x_test=ds.x_test,
+                 y_test=ds.y_test, eval_every=3)
+    tds = Dataset(*(torch.tensor(np.asarray(a)) for a in
+                    (ds.x_train, ds.y_train, ds.x_test, ds.y_test)), name="pol")
+    state = outer_state_from_numpy(_np_outer_state(
+        j_init(key, jcfg, ds.x_train)))
+    out = twin.run(tds, args, state=state)
+    th, jh = out["fit"].history, jres.history
+    np.testing.assert_array_equal(th["iters"], jh["iters"])
+    np.testing.assert_allclose(th["hypers"], jh["hypers"], rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose([out["rmse"], out["llh"]],
+                               [jh["eval_rmse"][-1], jh["eval_llh"][-1]],
+                               rtol=1e-3)

@@ -61,10 +61,10 @@ def variants(src: str) -> dict:
     variants made from it."""
     base = re.sub(r"  switch \(num_nt\(s\)\) \{.*?#undef REPRO_NT_CASE",
                   "  return launch<KIND, MAX_NT>(u, w, v, out, workspace, n, m, "
-                  "d, s, splits, stream);\n", src, flags=re.S)
+                  "d, s, splits, lanes, stream);\n", src, flags=re.S)
     base = re.sub(r"  switch \(kind\) \{.*?default:\n      return -1;\n  \}",
                   "  return launch_kind<kMatern32>(u, w, v, out, workspace, n, "
-                  "m, d, s, splits, st);", base, flags=re.S)
+                  "m, d, s, splits, lanes, st);", base, flags=re.S)
     no_copy = _sub(base, "    if (stages == 2 && jt + 1 < t_hi) {",
                    "    if (false) {")
     no_copy = _sub(no_copy, "  if (t_lo < t_hi) load(buf0, t_lo);",
@@ -94,10 +94,10 @@ def bwd_variants(src: str) -> dict:
     (d <= 32), and the variants made from it."""
     base = re.sub(r"  switch \(\(d \+ 15\) / 16\) \{.*?\n  \}\n",
                   "  return launch<KIND, 2>(u, w, g, v, du, workspace, n, m, d, "
-                  "s, splits, stream);\n", src, flags=re.S)
+                  "s, splits, lanes, stream);\n", src, flags=re.S)
     base = re.sub(r"  switch \(kind\) \{.*?default:\n      return -1;\n  \}",
                   "  return launch_kind<kMatern32>(u, w, g, v, du, workspace, n, "
-                  "m, d, s, splits, st);", base, flags=re.S)
+                  "m, d, s, splits, lanes, st);", base, flags=re.S)
     no_copy = _sub(base, "    if (stages == 2 && jt + 1 < t_hi) {",
                    "    if (false) {")
     no_copy = _sub(no_copy, "  if (t_lo < t_hi) load(buf0, t_lo);",
@@ -169,10 +169,10 @@ def main() -> int:
         try:
             fns = _build(tiled, tmp, "", variants(
                 (csrc / "kernel_mvm.cu").read_text()), "repro_kernel_mvm_fwd",
-                (5, 6))
+                (5, 7))
             bwd_fns = _build(tiled, tmp, "bwd_", bwd_variants(
                 (csrc / "kernel_mvm_bwd.cu").read_text()),
-                "repro_kernel_mvm_bwd", (6, 6))
+                "repro_kernel_mvm_bwd", (6, 7))
         except RuntimeError as err:
             print(err, file=sys.stderr)
             return 1
@@ -223,7 +223,7 @@ def main() -> int:
                 def call():
                     rc = fn(u.data_ptr(), w.data_ptr(), v.data_ptr(),
                             out.data_ptr(), None if ws is None else ws.data_ptr(),
-                            n, m, d, s, MATERN32, splits, stream)
+                            n, m, d, s, MATERN32, splits, 1, stream)
                     if rc != 0:
                         raise RuntimeError(f"{name}: launch failed ({rc})")
 
@@ -247,7 +247,7 @@ def main() -> int:
                     rc = fn(u.data_ptr(), w.data_ptr(), g.data_ptr(),
                             v.data_ptr(), du.data_ptr(),
                             None if ws is None else ws.data_ptr(),
-                            n, m, d, s, MATERN32, splits, stream)
+                            n, m, d, s, MATERN32, splits, 1, stream)
                     if rc != 0:
                         raise RuntimeError(f"bwd_{name}: launch failed ({rc})")
 

@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
+refresh.
 
     python3 chip_smoke.py
 
@@ -84,6 +85,35 @@ Phases, each printing JSON lines:
    kernels phase also holds both kernels at B = 4 lane by lane to their
    plain versions (CG shape, AP and SGD slabs, the fused call at s' = 130
    and 272) and times the CG shapes at B = 1 and 4.
+
+9. refresh (since the online-refresh slice), on the model phase 3 fitted
+   at full pol, with the launch counts set to 0 just before and read just
+   after (i)-(vi): (i) 256 test rows appended, ``refresh_into(mode=
+   "solve", budget_epochs=10)`` warm, and the same cold from a fresh
+   ``OnlineGP`` (warm epochs <= cold); (ii) 64 more rows, ``mode="auto",
+   correction="damped"`` (residual <= 5 x tolerance or escalated), against
+   a warm full re-solve of the same system; (iii) geometric growth with
+   ``reserve=32`` and 32 rounds of a one-row append + auto/damped refresh
+   into a second engine (capacity and growth events constant); (iv) one
+   ``refine(mode="step")`` (one fused backward per column chunk); (v) a
+   background ``refresh_into`` while 20 queued 64-row requests run on the
+   engine's worker (every Future resolves; after the swap the engine
+   agrees with the exported model on the CPU); (vi) ``save_servable`` /
+   ``load_servable`` on the card (bitwise-equal predictions). Forward
+   launches must equal every refine's kernel products
+   (``RefreshReport.mvms``) plus the engines' dispatches. (viii) the
+   ``refresh`` events equal the refines and the ``gp_engine_*`` /
+   ``gp_refresh_*`` families' deltas equal the engines' and refreshers'
+   stats. Then checks outside the counted path: every ghost row's kernel
+   diagonal is kappa(0) and its cross terms exactly 0 on the card, and
+   (vii) the forward kernel at the block refresh's shapes (k x n, n x k,
+   k x k for k = 1, 7, 64) against its plain version, timed with its bound,
+   plain and library times.
+10. bo: ``run_bo`` at ``benchmarks/online_bo.py``'s ``--full`` setting (d = 2,
+   n0 = 512, 2048 candidates, 8 probes, 128 RFF pairs, CG to 0.01, 5 fit
+   steps, Matérn-3/2), rounds cut from 400 to 100, warm (auto + damped)
+   and cold arms; warm cumulative epochs <= 0.5 x cold, launches held to
+   the fit's MVMs and every round's dispatch and refresh products.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -485,13 +515,13 @@ def phase_serve(torch, tiled) -> tuple:
     args = SimpleNamespace(
         dataset="pol", max_n=0, train_steps=10, requests=20, seed=0,
         buckets="16,64,256", num_probes=64, device="cuda", backend="cuda",
-        verbose=True)
+        verbose=True, refresh_every=0)
     torch.cuda.reset_peak_memory_stats()
     tiled.reset_launch_counts()
     run = serve_gp(args)
     report, engine = run.report, run.engine
     launches = tiled.launch_counts()
-    second_passes = dict(tiled.SECOND_PASSES)
+    second_passes = tiled.second_pass_counts()
     peak = torch.cuda.max_memory_allocated()
 
     steps = len(report["steps"])
@@ -559,6 +589,459 @@ def phase_serve(torch, tiled) -> tuple:
     return summary, (launches, second_passes), run
 
 
+# The refresh phase (since the online-refresh slice): pol's test rows as
+# appends, the block refresh's kernel shapes, and the BO benchmark's setting.
+REFRESH_K = (1, 7, 64)
+BO_ROUNDS = 100  # benchmarks/online_bo.py --full runs 400
+BO_SETTING = dict(d=2, n0=512, candidates=2048, probes=8, rff_pairs=128,
+                  fit_steps=5)
+TOL_GHOST_DIAG = 1e-6
+
+
+def _cpu_model(model):
+    """A served artifact with every tensor on the CPU (plain versions)."""
+    return model._replace(
+        x=model.x.cpu(), correction=model.correction.cpu(),
+        rff=model.rff._replace(z=model.rff.z.cpu(), u=model.rff.u.cpu(),
+                               w=model.rff.w.cpu()),
+        params=model.params.with_leaves([t.cpu() for t in model.params.leaves]))
+
+
+def _prom_totals(text: str) -> dict:
+    """Each family's sample values summed over its label sets."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            name = series.split("{", 1)[0]
+            out[name] = out.get(name, 0.0) + float(value)
+    return out
+
+
+def _report_rec(label, rep) -> dict:
+    return {"phase": "refresh", "run": label, "mode": rep.mode,
+            "appended": rep.appended, "n": rep.n, "capacity": rep.capacity,
+            "epochs": rep.epochs, "iters": rep.iters, "mvms": rep.mvms,
+            "res_y": rep.res_y, "res_z": rep.res_z, "warm": rep.warm,
+            "corrected": rep.corrected, "escalated": rep.escalated,
+            "block_rows": rep.block_rows, "block_epochs": rep.block_epochs,
+            "correction_epochs": rep.correction_epochs}
+
+
+def _refresh_kernel_shapes(torch, tiled, x, params, kind) -> dict:
+    """(vii) The forward kernel at the block refresh's shapes for k = 1, 7,
+    64 rows: k x cap against the carry (s = 65), cap x k against dv, and
+    the k x k operator of the block solve; each against its plain version,
+    timed with its plain version, the library yardstick and the bound."""
+    from repro_torch.kernels import registry
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    u = (x / params.lengthscales).contiguous()
+    cap, d = u.shape
+    kappa = registry.get_kernel(kind).kappa_from_r2
+    out, bad = {}, []
+    for k in REFRESH_K:
+        new = u[-k:].contiguous()
+        for label, (a, b) in (("k_by_cap", (new, u)), ("cap_by_k", (u, new)),
+                              ("k_by_k", (new, new))):
+            s = 65
+            v = torch.randn((b.shape[0], s), generator=gen, device="cuda")
+            got = tiled.kernel_mvm_cuda(a, b, v, kind)
+            ref = tiled.kernel_mvm_plain(a, b, v, kind)
+            torch.cuda.synchronize()
+            err = (got.double() - ref.double()).abs().max().item()
+            scale = ref.abs().max().item()
+            n, m = a.shape[0], b.shape[0]
+            rec = {"phase": "refresh_kernel", "shape": f"{label}_k{k}",
+                   "n": n, "m": m, "d": d, "s": s, "kind": kind,
+                   "splits": tiled.split_plan(
+                       n, m, s, torch.cuda.get_device_properties(0)
+                       .multi_processor_count),
+                   "max_abs_err": err, "rel_err": err / scale,
+                   "tol_rel": TOL_VS_PLAIN}
+            rec["ms"] = time_ms(lambda: tiled.kernel_mvm_cuda(a, b, v, kind),
+                                50)
+            rec["plain_ms"] = time_ms(
+                lambda: tiled.kernel_mvm_plain(a, b, v, kind), 5)
+            rec["library_ms"] = time_ms(
+                lambda: kappa(torch.cdist(a, b) ** 2) @ v, 10)
+            rec.update(bound(n, m, d, s))
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            out[rec["shape"]] = {key: rec[key] for key in (
+                "n", "m", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_unit", "splits", "rel_err")}
+            if not (math.isfinite(err) and err <= TOL_VS_PLAIN * scale):
+                bad.append((rec["shape"], err / scale))
+    if bad:
+        raise AssertionError(f"refresh-shape kernel checks failed: {bad}")
+    return out
+
+
+def phase_refresh(torch, tiled, serve_run) -> tuple:
+    """Runs (i)-(vi) and (viii) on the model ``phase_serve`` fitted at full
+    pol, with the launch counts set to 0 just before and read just after;
+    then (vii), the kernel at the block refresh's shapes, and the ghost-row
+    checks. Returns the path's counts and (vii)'s records."""
+    import tempfile
+
+    from repro_torch.core.outer import effective_kind
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import (AUTO_COUPLING_FACTOR, BucketedEngine,
+                                   OnlineGP, load_servable, save_servable,
+                                   servable_predict)
+
+    ds, cfg, state, engine = (serve_run.dataset, serve_run.cfg,
+                              serve_run.state, serve_run.engine)
+    n0, d = ds.x_train.shape
+    s1 = state.carry_v.shape[1]
+    tol = cfg.solver.tolerance
+    kind = effective_kind(cfg, state.params)
+    problems, reports, onlines = [], [], []
+    engines = [engine]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_refresh_")
+    obs_trace.configure(path=f"{tmp}/events.jsonl")
+    before = _prom_totals(obs_metrics.render_prometheus())
+    eng_before = {id(engine): engine.stats_dict()}
+    seconds = {}
+
+    def dispatches(e):
+        return e.stats_dict()["batches"] - eng_before.get(id(e), {}).get(
+            "batches", 0)
+
+    def refine(online, label, **kw):
+        t0 = time.perf_counter()
+        into = kw.pop("into", None)
+        rep = (online.refresh_into(into, **kw) if into is not None
+               else online.refine(**kw))
+        torch.cuda.synchronize()
+        rec = _report_rec(label, rep)
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        reports.append(rep)
+        return rep
+
+    torch.cuda.synchronize()
+    tiled.reset_launch_counts()
+    t_path = time.perf_counter()
+    try:
+        # (i) exact growth: 256 test rows, warm vs cold solve, budget 10.
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        online = OnlineGP(ds.x_train, ds.y_train, state, cfg, generator=gen)
+        online.append(ds.x_test[:256], ds.y_test[:256])
+        cold = OnlineGP(ds.x_train, ds.y_train, state, cfg)
+        cold.append(ds.x_test[:256], ds.y_test[:256],
+                    rows=online.state.probes.w_eps[n0:])
+        onlines += [online, cold]
+        warm_rep = refine(online, "i_solve_warm", into=engine, mode="solve",
+                          budget_epochs=10.0)
+        cold_rep = refine(cold, "i_solve_cold", mode="solve", warm=False,
+                          budget_epochs=10.0)
+        if not warm_rep.epochs <= cold_rep.epochs:
+            problems.append(f"(i) warm epochs {warm_rep.epochs} > cold "
+                            f"{cold_rep.epochs}")
+        seconds["i_exact"] = time.perf_counter() - t0
+
+        # (ii) auto with the damped correction on 64 more rows, against a
+        # warm full re-solve to tolerance of the same appended system.
+        t0 = time.perf_counter()
+        online.append(ds.x_test[256:320], ds.y_test[256:320])
+        check = OnlineGP(online.x, online.y, online.state, cfg)
+        onlines.append(check)
+        auto = refine(online, "ii_auto_damped", into=engine, mode="auto",
+                      correction="damped")
+        if not (max(auto.res_y, auto.res_z) <= AUTO_COUPLING_FACTOR * tol
+                or auto.escalated):
+            problems.append(f"(ii) residual {auto.res_y}, {auto.res_z} over "
+                            "the threshold without escalation")
+        full = refine(check, "ii_full_resolve_check", mode="solve")
+        n_real = online.n
+        a, b = online.state.carry_v[:n_real], check.state.carry_v[:n_real]
+        carry_rel = ((a - b).abs().max() / b.abs().max()).item()
+        emit({"phase": "refresh", "run": "ii_auto_vs_full_resolve",
+              "carry_rel_diff_real_rows": carry_rel,
+              "full_resolve_iters": full.iters})
+        seconds["ii_auto"] = time.perf_counter() - t0
+
+        # (iii) geometric growth: reserve 32, then 32 one-row rounds.
+        t0 = time.perf_counter()
+        geo = OnlineGP(ds.x_train, ds.y_train, state, cfg,
+                       growth="geometric", reserve=32,
+                       generator=torch.Generator(device="cuda").manual_seed(3))
+        onlines.append(geo)
+        cap, grown = geo.capacity, geo.stats_dict()["growth_events"]
+        geo_engine = BucketedEngine(geo.export(), buckets=(16,))
+        engines.append(geo_engine)
+        eng_before[id(geo_engine)] = geo_engine.stats_dict()
+        geo_reps = []
+        for r in range(32):
+            row = slice(384 + r, 385 + r)
+            geo.append(ds.x_test[row], ds.y_test[row])
+            geo_reps.append(refine(geo, f"iii_geometric_round{r}",
+                                   into=geo_engine, mode="auto",
+                                   correction="damped"))
+            geo_engine.submit(ds.x_test[:16])
+        gstats = geo.stats_dict()
+        emit({"phase": "refresh", "run": "iii_geometric", "capacity": cap,
+              "n": geo.n, "growth_events": gstats["growth_events"],
+              "cum_epochs": gstats["cum_epochs"],
+              "escalations": gstats["escalations"],
+              "corrections": gstats["corrections"]})
+        if geo.capacity != cap or gstats["growth_events"] != grown:
+            problems.append(f"(iii) capacity {cap} -> {geo.capacity}, growth "
+                            f"events {grown} -> {gstats['growth_events']}")
+        seconds["iii_geometric"] = time.perf_counter() - t0
+
+        # (iv) one step under exact growth: one fused backward per chunk.
+        t0 = time.perf_counter()
+        bwd0 = tiled.launch_counts()[tiled.BWD_KERNEL_NAME]
+        step = refine(online, "iv_step", mode="step")
+        bwd = tiled.launch_counts()[tiled.BWD_KERNEL_NAME] - bwd0
+        chunks = len(tiled.bwd_s_chunks(d, s1, fused=True))
+        if bwd != chunks:
+            problems.append(f"(iv) {bwd} backward launches, {chunks} chunks")
+        seconds["iv_step"] = time.perf_counter() - t0
+
+        # (v) background refresh under 20 queued 64-row requests.
+        t0 = time.perf_counter()
+        online.append(ds.x_test[416:480], ds.y_test[416:480])
+        n_test = ds.x_test.shape[0]
+
+        def req(i):
+            lo = (i * 64) % (n_test - 64)
+            return ds.x_test[lo:lo + 64]
+
+        futs = [engine.enqueue(req(i)) for i in range(10)]
+        bg = online.refresh_into(engine, mode="auto", correction="damped",
+                                 background=True)
+        futs += [engine.enqueue(req(i)) for i in range(10, 20)]
+        preds = [f.result(timeout=300) for f in futs]
+        bg_rep = bg.result(timeout=300)
+        torch.cuda.synchronize()
+        engine.stop()
+        reports.append(bg_rep)
+        rec = _report_rec("v_background", bg_rep)
+        rec["requests_resolved"] = len(preds)
+        emit(rec)
+        if not all(bool(torch.isfinite(p.mean).all()) for p in preds):
+            problems.append("(v) non-finite predictions under load")
+        xq = ds.x_test[:64]
+        on_card = engine.submit(xq)
+        on_cpu = servable_predict(_cpu_model(engine.model), xq.cpu())
+        serve_err = {f: ((getattr(on_card, f).cpu().double()
+                          - getattr(on_cpu, f).double()).abs().max()
+                         / getattr(on_cpu, f).double().abs().max()).item()
+                     for f in ("mean", "var", "samples")}
+        emit({"phase": "refresh", "run": "v_after_swap_vs_cpu",
+              "rel_err": serve_err, "tol_rel": TOL_SERVE_VS_CPU,
+              "model_n": engine.model.n})
+        if engine.model.n != online.n or not all(
+                e <= TOL_SERVE_VS_CPU for e in serve_err.values()):
+            problems.append(f"(v) after the swap: n {engine.model.n}, "
+                            f"errors {serve_err}")
+        seconds["v_background"] = time.perf_counter() - t0
+
+        # (vi) artifacts: save, load on the card, bitwise-equal predictions.
+        t0 = time.perf_counter()
+        save_servable(f"{tmp}/artifact", engine.model, step=1)
+        loaded = load_servable(f"{tmp}/artifact", device="cuda")
+        twin = BucketedEngine(loaded, buckets=engine.buckets)
+        engines.append(twin)
+        eng_before[id(twin)] = twin.stats_dict()
+        a, b = engine.submit(xq), twin.submit(xq)
+        bitwise = all(torch.equal(getattr(a, f), getattr(b, f))
+                      for f in ("mean", "var", "samples"))
+        emit({"phase": "refresh", "run": "vi_artifact", "bitwise_equal":
+              bitwise, "n": loaded.n})
+        if not bitwise:
+            problems.append("(vi) loaded artifact predicts differently")
+        seconds["vi_artifact"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        engine.stop()
+        obs_trace.configure()
+    path_s = time.perf_counter() - t_path
+    launches = tiled.launch_counts()
+    second = tiled.second_pass_counts()
+
+    # Launch accounting: every refine's kernel products + every dispatch.
+    engine_dispatches = sum(dispatches(e) for e in engines)
+    expected = {tiled.KERNEL_NAME: sum(r.mvms for r in reports)
+                + engine_dispatches,
+                tiled.BWD_KERNEL_NAME: len(tiled.bwd_s_chunks(d, s1,
+                                                              fused=True))}
+    for k, want in expected.items():
+        if launches[k] == 0 or launches[k] != want:
+            problems.append(f"refresh: {k} launches {launches[k]} != "
+                            f"expected {want}")
+
+    # (viii) observability: events and Prometheus families.
+    events = [json.loads(line) for line in open(f"{tmp}/events.jsonl")]
+    refreshes = [e for e in events if e["kind"] == "refresh"]
+    refines = sum(o.stats_dict()["refines"] for o in onlines)
+    after = _prom_totals(obs_metrics.render_prometheus())
+
+    def delta(name):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    stats = [o.stats_dict() for o in onlines]
+    want = {
+        "gp_engine_requests_total": sum(
+            e.stats_dict()["requests"] - eng_before[id(e)]["requests"]
+            for e in engines),
+        "gp_engine_batches_total": engine_dispatches,
+        "gp_refresh_refines_total": refines,
+        "gp_refresh_appended_rows_total": sum(st["appended_rows"]
+                                              for st in stats),
+        "gp_refresh_escalations_total": sum(st["escalations"] for st in stats),
+        "gp_refresh_epochs_total": sum(st["cum_epochs"] for st in stats),
+    }
+    got = {name: delta(name) for name in want}
+    obs_ok = (len(refreshes) == refines == len(reports)
+              and all(abs(got[k] - v) <= 1e-9 * max(1.0, abs(v))
+                      for k, v in want.items())
+              and "gp_refresh_pending_appends" in after
+              and "gp_engine_queue_depth" in after)
+    emit({"phase": "refresh", "run": "viii_observability",
+          "refresh_events": len(refreshes), "refines": refines,
+          "events": len(events), "metric_deltas": got,
+          "expected_deltas": want, "ok": obs_ok})
+    if not obs_ok:
+        problems.append(f"(viii) events {len(refreshes)} vs refines "
+                        f"{refines}; metrics {got} vs {want}")
+
+    # Ghost rows on the card (checks, after the counts were read): every
+    # ghost's diagonal is kappa(0) and every cross term is exactly 0.
+    from repro_torch.gp.kernels_math import profile_from_r2
+
+    u = geo.x / geo.state.params.lengthscales
+    ghosts, real = u[geo.n:].contiguous(), u[:geo.n].contiguous()
+    kappa0 = float(profile_from_r2(kind)(torch.zeros((), device="cuda"),
+                                         torch.ones((), device="cuda")))
+    ones_g = torch.ones((ghosts.shape[0], 1), device="cuda")
+    diag = tiled.kernel_mvm_cuda(ghosts, ghosts, ones_g, kind)[:, 0]
+    cross = tiled.kernel_mvm_cuda(
+        ghosts, real, torch.ones((real.shape[0], 1), device="cuda"), kind)
+    ghost = {"ghosts": int(ghosts.shape[0]),
+             "max_abs_coordinate": float(ghosts.abs().max()),
+             "diag_max_abs_dev": float((diag - kappa0).abs().max()),
+             "diag_equal_kappa0": int((diag == kappa0).sum()),
+             "cross_nonzero": int((cross != 0).sum()),
+             "finite": bool(torch.isfinite(diag).all())}
+    emit({"phase": "refresh", "run": "iii_ghost_rows", "kappa0": kappa0,
+          **ghost})
+    if not (ghost["finite"] and ghost["diag_max_abs_dev"] <= TOL_GHOST_DIAG
+            and ghost["cross_nonzero"] == 0):
+        problems.append(f"(iii) ghost rows not inert: {ghost}")
+
+    t0 = time.perf_counter()
+    shapes = _refresh_kernel_shapes(torch, tiled, online.x, online.state.params,
+                                    kind)
+    seconds["vii_kernel_shapes"] = time.perf_counter() - t0
+    summary = {
+        "phase": "refresh", "run": "summary", "n_train": n0,
+        "path_seconds": path_s, "seconds": seconds,
+        "i_warm": {"epochs": warm_rep.epochs, "iters": warm_rep.iters},
+        "i_cold": {"epochs": cold_rep.epochs, "iters": cold_rep.iters},
+        "ii_auto": _report_rec("ii", auto),
+        "ii_carry_rel_vs_full_resolve": carry_rel,
+        "iii_geometric_round_s": seconds["iii_geometric"] / len(geo_reps),
+        "iv_step_bwd_launches": bwd, "bwd_s_chunks": chunks,
+        "engine_dispatches": engine_dispatches,
+        "kernel_launches": launches, "expected_launches": expected,
+        "fwd_second_pass_calls": second[tiled.KERNEL_NAME],
+        "bwd_second_pass_calls": second[tiled.BWD_KERNEL_NAME],
+        "step_iters": step.iters,
+    }
+    emit(summary)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return (launches, second), shapes
+
+
+def phase_bo(torch, tiled) -> tuple:
+    """(ix) The BO loop at benchmarks/online_bo.py's --full setting (d = 2,
+    n0 = 512, 2048 candidates, 8 probes, 128 RFF pairs, CG to 0.01, 5 fit
+    steps, Matérn-3/2), rounds cut to BO_ROUNDS: warm (auto + damped) and
+    cold arms from one fit, the same candidate stream; the launch counts
+    over the fit and both arms held to their work."""
+    from repro_torch.core.driver import fit
+    from repro_torch.core.outer import OuterConfig
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.online import BOConfig, make_gaussian_bumps, run_bo
+    from repro_torch.solvers import SolverConfig
+
+    st = BO_SETTING
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    objective, f_opt = make_gaussian_bumps(st["d"], generator=gen,
+                                           device="cuda")
+    x0 = -1.0 + 2.0 * torch.rand((st["n0"], st["d"]), generator=gen,
+                                 device="cuda")
+    y0 = objective(x0)
+    cfg = OuterConfig(
+        estimator="pathwise", num_probes=st["probes"],
+        num_rff_pairs=st["rff_pairs"],
+        solver=SolverConfig(name="cg", tolerance=1e-2, precond_rank=0),
+        num_steps=st["fit_steps"], bm=256, bn=256, backend="cuda")
+    torch.cuda.synchronize()
+    tiled.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(x0, y0, cfg, generator=gen, init_params=HyperParams.create(
+        st["d"], lengthscale=0.3, signal=1.0, noise=0.1, device="cuda"))
+    fit_s = time.perf_counter() - t0
+    arms = {"warm": BOConfig(rounds=BO_ROUNDS, num_candidates=st["candidates"],
+                             refresh_mode="auto", correction="damped"),
+            "cold": BOConfig(rounds=BO_ROUNDS, num_candidates=st["candidates"],
+                             warm=False)}
+    outs = {}
+    for name, bo in arms.items():
+        outs[name] = run_bo(objective, x0, y0, res.state, cfg, bo=bo,
+                            bounds=(-1.0, 1.0), f_opt=f_opt,
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(1))
+    torch.cuda.synchronize()
+    launches = tiled.launch_counts()
+    second = tiled.second_pass_counts()
+    h = res.history
+    steps = len(h["iters"])
+    expected = {
+        tiled.KERNEL_NAME: int(h["mvms"].sum()) + steps + sum(
+            1 + BO_ROUNDS + sum(e["mvms"] for e in out.history)
+            for out in outs.values()),
+        tiled.BWD_KERNEL_NAME: steps * len(
+            tiled.bwd_s_chunks(st["d"], st["probes"] + 1, fused=True)),
+    }
+    rec = {"phase": "bo", "rounds": BO_ROUNDS, **st, "f_opt": f_opt,
+           "fit_seconds": fit_s, "fit_iters": h["iters"].tolist(),
+           "launches": launches, "expected_launches": expected,
+           "fwd_second_pass_calls": second[tiled.KERNEL_NAME]}
+    for name, out in outs.items():
+        rec[name] = {"cum_epochs": out.cum_epochs,
+                     "escalations": out.escalations,
+                     "corrections": out.corrections,
+                     "rounds_per_sec": out.rounds_per_sec,
+                     "best_y": out.best_y, "regret": out.regret,
+                     "capacity": out.refresh_stats["capacity"],
+                     "growth_events": out.refresh_stats["growth_events"]}
+    ratio = outs["warm"].cum_epochs / max(outs["cold"].cum_epochs, 1e-9)
+    rec["epoch_ratio_warm_over_cold"] = ratio
+    emit(rec)
+    problems = []
+    if not ratio <= 0.5:
+        problems.append(f"BO warm/cold epochs {ratio:.3f} > 0.5")
+    for k, want in expected.items():
+        if launches[k] == 0 or launches[k] != want:
+            problems.append(f"BO: {k} launches {launches[k]} != {want}")
+    if not all(math.isfinite(out.best_y) for out in outs.values()):
+        problems.append("BO: non-finite best y")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches, second
+
+
 def expected_launches(tiled, h, solver, d, probes, grid=0) -> dict:
     """The launches a fit's history accounts for. Forward: every full MVM,
     every AP/SGD slab (one per iteration), the gradient's forward (1 per
@@ -614,7 +1097,7 @@ def phase_train(torch, tiled) -> tuple:
         run = run_gp(args)
         torch.cuda.synchronize()
         launches = tiled.launch_counts()
-        second_passes = dict(tiled.SECOND_PASSES)
+        second_passes = tiled.second_pass_counts()
         peak = torch.cuda.max_memory_allocated()
         out, res, h = run.summary, run.fit, run.fit.history
         steps = len(h["iters"])
@@ -866,7 +1349,7 @@ def phase_large(torch, tiled) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tiled.launch_counts()
-    second_passes = dict(tiled.SECOND_PASSES)
+    second_passes = tiled.second_pass_counts()
     peak = torch.cuda.max_memory_allocated()
     n, d = out[True].state.carry_v.shape[0], ds.x_train.shape[1]
     expected = dict.fromkeys(tiled.LAUNCHES, 0)
@@ -1025,7 +1508,7 @@ def phase_large_steps(torch, tiled) -> tuple:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = tiled.launch_counts()
-        second_passes = dict(tiled.SECOND_PASSES)
+        second_passes = tiled.second_pass_counts()
         peak = torch.cuda.max_memory_allocated()
         h, state = run.fit.history, run.fit.state
         n, d = state.carry_v.shape[0], state.params.raw_lengthscales.numel()
@@ -1232,7 +1715,7 @@ def _run_batch(torch, tiled, label, args) -> tuple:
     def on_group(cfg, cells, results, seconds):
         torch.cuda.synchronize()
         launches = tiled.launch_counts()
-        second = dict(tiled.SECOND_PASSES)
+        second = tiled.second_pass_counts()
         h0 = results[0].history
         steps = len(h0["iters"])
         expected = expected_lane_launches(tiled, cfg, results, x.shape[1])
@@ -1332,7 +1815,7 @@ def _budget_lanes(torch, tiled) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tiled.launch_counts()
-    second = dict(tiled.SECOND_PASSES)
+    second = tiled.second_pass_counts()
     problems, recs = [], []
     for seed, res in enumerate(lanes):
         one = fit(x, y, cfg, generator=torch.Generator(device="cuda")
@@ -1491,13 +1974,26 @@ def main() -> int:
         failures.append("kernels_bwd")
     phase_s["kernels_bwd"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
+    serve_run = None
     try:
-        _, launches, _ = phase_serve(torch, tiled)
+        _, launches, serve_run = phase_serve(torch, tiled)
         path_launches.append(launches)
     except Exception:
         traceback.print_exc()
         failures.append("serve")
     phase_s["serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    refresh_shapes = None
+    try:
+        if serve_run is None:
+            raise RuntimeError("the refresh phase needs the serve phase's fit")
+        launches, refresh_shapes = phase_refresh(torch, tiled, serve_run)
+        path_launches.append(launches)
+        path_launches.append(phase_bo(torch, tiled))
+    except Exception:
+        traceback.print_exc()
+        failures.append("refresh")
+    phase_s["refresh"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     try:
         launches, fits = phase_train(torch, tiled)
@@ -1542,7 +2038,8 @@ def main() -> int:
                       "src/repro/kernels/tiled.py:98",
                       total(tiled.KERNEL_NAME), fwd_entry,
                       second_pass_calls=total(tiled.KERNEL_NAME, 1),
-                      lanes=lane_kernels.get(tiled.KERNEL_NAME)),
+                      lanes=lane_kernels.get(tiled.KERNEL_NAME),
+                      refresh_shapes=refresh_shapes),
         _kernel_entry(tiled.BWD_KERNEL_NAME,
                       "src/repro_torch/csrc/kernel_mvm_bwd.cu",
                       "src/repro/kernels/tiled.py:131",

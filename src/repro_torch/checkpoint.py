@@ -17,7 +17,9 @@ Leaf order of an :class:`~repro_torch.core.outer.OuterState`:
 
 (the reference's order without its PRNG ``key`` and ``last_*`` leaves).
 Restoring takes a template state for the static parts (kernel names,
-estimator) and the device and dtypes of the leaves.
+estimator) and the device and dtypes of the leaves. :func:`save_leaves` and
+:func:`load_leaves` write and read any list of leaves in the same layout
+(the serving artifact's, ``repro_torch.serve.artifact``).
 """
 from __future__ import annotations
 
@@ -83,8 +85,16 @@ def _write_atomic(path: str, tmp: str, write) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, state: OuterState,
                     metadata: Optional[dict] = None, keep: int = 3) -> str:
     """Atomically persist ``state`` at ``step``. Returns the final path."""
+    return save_leaves(ckpt_dir, step, state_leaves(state),
+                       metadata=metadata, keep=keep)
+
+
+def save_leaves(ckpt_dir: str, step: int, leaves: list,
+                metadata: Optional[dict] = None, keep: int = 3) -> str:
+    """Atomically persist ``leaves`` (tensors, or ints stored as int32) at
+    ``step`` in the layout of the module docstring, keeping the last
+    ``keep`` checkpoints. Returns the final path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    leaves = state_leaves(state)
     arrays = {f"leaf_{i}": (leaf.detach().cpu().numpy()
                             if isinstance(leaf, torch.Tensor)
                             else np.asarray(leaf, dtype=np.int32))

@@ -117,14 +117,21 @@ def _round_size(step: int, num_steps: int, steps_per_round: int,
 
 
 def _append_round(history: dict, metrics: dict, dt: float, k: int,
-                  lane: Optional[int] = None) -> float:
+                  lane: Optional[int] = None, event_log=None,
+                  solver: str = "") -> float:
     """Append one round's host metrics (leading axis k steps, then the lane
     axis when ``lane`` is given) to the per-step history; returns the
     round's estimated solve time. The solve vs gradient/Adam split is the
     reference's epoch accounting: each step's ``epochs`` against
     :data:`GRAD_EPOCH_EQUIV` (``solver_frac_iters``). The residual rings
     (``res_history``, time-ordered per step) and the ``budget_*`` columns
-    join the history when the metrics carry them."""
+    join the history when the metrics carry them.
+
+    With ``event_log`` (a :class:`repro_torch.obs.trace.EventLog`) each
+    step emits the reference's ``solve_step`` event (``step, solver, lane,
+    res_y, res_z, iters, epochs, step_time_s``, and the step's finite ring
+    rows as ``res_history`` when the ring is on), and under a budget policy
+    a ``budget_decision`` event with the ``budget_*`` columns."""
     from repro_torch.solvers.base import unroll_history
 
     def col(name, dtype=float):
@@ -147,21 +154,43 @@ def _append_round(history: dict, metrics: dict, dt: float, k: int,
     history["data_fit"].extend(col("data_fit"))
     history["step_time_s"].extend([dt / k] * k)
     history["solver_frac_iters"].extend(frac)
+    rings = None
     if "res_history" in metrics:
-        rings = col("res_history", None)
-        history.setdefault("res_history", []).extend(
-            unroll_history(h, i) for h, i in zip(rings, iters))
-    for name in metrics:
-        if name.startswith("budget_"):
-            history.setdefault(name, []).extend(col(name))
+        rings = [unroll_history(h, i)
+                 for h, i in zip(col("res_history", None), iters)]
+        history.setdefault("res_history", []).extend(rings)
+    budget_cols = {name: col(name) for name in metrics
+                   if name.startswith("budget_")}
+    for name, vals in budget_cols.items():
+        history.setdefault(name, []).extend(vals)
+    if event_log is not None:
+        _emit_round(event_log, metrics, k, lane, solver, dt, rings,
+                    budget_cols, col)
     return float(np.sum(dt / k * frac))
 
 
-def _no_event_log(event_log) -> None:
-    if event_log is not None:
-        raise NotImplementedError(
-            "event_log= needs the port of obs/ (ROADMAP Queue 1 item 4); "
-            "pass None")
+def _emit_round(event_log, metrics: dict, k: int, lane: Optional[int],
+                solver: str, dt: float, rings, budget_cols: dict,
+                col) -> None:
+    """The reference's per-step ``solve_step`` (and ``budget_decision``)
+    events of one round."""
+    steps = np.asarray(metrics["step"], dtype=int).reshape(-1)
+    res_y, res_z = col("res_y"), col("res_z")
+    iters, epochs = col("iters", int), col("epochs", np.float64)
+    for j in range(k):
+        fields = dict(step=int(steps[j]), solver=solver, lane=lane,
+                      res_y=float(res_y[j]), res_z=float(res_z[j]),
+                      iters=int(iters[j]), epochs=float(epochs[j]),
+                      step_time_s=dt / k)
+        if rings is not None:
+            row = rings[j]
+            fields["res_history"] = row[np.isfinite(row[:, 0])].tolist()
+        event_log.emit("solve_step", **fields)
+        if budget_cols:
+            event_log.emit("budget_decision", step=int(steps[j]),
+                           solver=solver, lane=lane, **{
+                               name[len("budget_"):]: float(vals[j])
+                               for name, vals in budget_cols.items()})
 
 
 def fit(
@@ -213,9 +242,11 @@ def fit(
     ``cfg.solver.record_history >= 2`` (``ValueError`` otherwise); an
     ``AUTO_HORIZON`` horizon becomes ``cfg.num_steps``, the history gains
     the ``budget_*`` columns, and the policy rides across rounds on the
-    device. ``event_log`` waits for the port of ``obs/`` and must be None.
+    device. ``event_log`` (a :class:`repro_torch.obs.trace.EventLog`)
+    receives one ``solve_step`` event per step (and ``budget_decision``
+    under a budget policy, see :func:`_append_round`) and a ``fit_done``
+    event at the end, as the reference's.
     """
-    _no_event_log(event_log)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
     policy = budget_policy
@@ -254,7 +285,9 @@ def fit(
         _sync(state.carry_v)
         dt = time.perf_counter() - ts
         metrics = _host_metrics(metrics)
-        solver_time += _append_round(history, metrics, dt, k)
+        solver_time += _append_round(history, metrics, dt, k,
+                                     event_log=event_log,
+                                     solver=cfg.solver.name)
         step = state.step
         if eval_every and x_test is not None and step % eval_every == 0:
             m = evaluate(x, state, cfg, x_test, y_test, generator=generator,
@@ -275,9 +308,15 @@ def fit(
                   flush=True)
     if ckpt_dir:
         checkpoint(cfg.num_steps)
+    wall = time.perf_counter() - t0
     hist = {k: np.asarray(v) for k, v in history.items()}
-    return FitResult(state=state, history=hist,
-                     wall_time_s=time.perf_counter() - t0,
+    if event_log is not None:
+        event_log.emit(
+            "fit_done", solver=cfg.solver.name, num_steps=cfg.num_steps,
+            total_iters=int(np.sum(hist["iters"])),
+            total_epochs=float(np.sum(hist["epochs"])),
+            wall_time_s=wall, solver_time_s=solver_time)
+    return FitResult(state=state, history=hist, wall_time_s=wall,
                      solver_time_s=solver_time,
                      grad_time_s=float(np.sum(hist["step_time_s"]))
                      - solver_time)
@@ -324,10 +363,10 @@ def fit_batch(
     ``solver_time_s`` splits its share by its own epoch accounting.
     ``budget_policy`` gives every lane the adaptive controller: scalar
     leaves are broadcast, (B,) leaves give each lane its own pool, floor or
-    ceiling. There is no ``mesh=`` (sharding lanes over cards waits for the
-    distributed slice), and ``event_log`` must be None.
+    ceiling. ``event_log`` receives lane-tagged ``solve_step`` events
+    (see :func:`fit`). There is no ``mesh=`` (sharding lanes over cards
+    waits for the distributed slice).
     """
-    _no_event_log(event_log)
     gens = _lane_generators(generators, x.device)
     lanes = len(gens)
     if states is None:
@@ -360,8 +399,9 @@ def fit_batch(
         dt = time.perf_counter() - ts
         metrics = _host_metrics(metrics)
         for lane in range(lanes):
-            solver_times[lane] += _append_round(histories[lane], metrics,
-                                                dt / lanes, k, lane=lane)
+            solver_times[lane] += _append_round(
+                histories[lane], metrics, dt / lanes, k, lane=lane,
+                event_log=event_log, solver=cfg.solver.name)
         step = states.step
         if verbose:
             print(f"[fit_batch] step {step}/{cfg.num_steps} x {lanes} lanes "

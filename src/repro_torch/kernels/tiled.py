@@ -19,9 +19,11 @@ and ``csrc/kernel_mvm_bwd.cu``.
   backward wrapper splits the columns of (g, v) over launches where its
   row tiles would not fit in shared memory. They count their launches in
   :data:`LAUNCHES`, and the launches that took their second pass (the
-  split sum) in :data:`SECOND_PASSES`. :func:`kernel_mvm_bwd_fused_cuda`
-  is the fused call: it builds the concatenated operands and launches the
-  backward kernel once (once per column chunk).
+  split sum) in :data:`SECOND_PASSES`, both under one lock
+  (:func:`count_launch`), so threads that launch at once lose no count.
+  :func:`kernel_mvm_bwd_fused_cuda` is the fused call: it builds the
+  concatenated operands and launches the backward kernel once (once per
+  column chunk).
 * :func:`split_plan` and :func:`bwd_split_plan` pick how many column splits
   each kernel runs, from the shapes and the card's SM count;
   :func:`bwd_s_chunks` the backward's column chunks of (g, v).
@@ -106,16 +108,39 @@ _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+# One lock for both tables: the engine's worker thread and a background
+# refresh launch kernels while the main thread does, and the smoke holds the
+# counts to exact equalities.
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str, second_pass: bool = False) -> None:
+    """Add one launch of kernel ``name`` (and one second-pass call when
+    ``second_pass``) to the counts, under their lock."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if second_pass:
+            SECOND_PASSES[name] += 1
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count (and second-pass count) to 0."""
-    for counts in (LAUNCHES, SECOND_PASSES):
-        for name in counts:
-            counts[name] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, SECOND_PASSES):
+            for name in counts:
+                counts[name] = 0
 
 
 def launch_counts() -> dict:
     """A copy of the launch counts since the last reset."""
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def second_pass_counts() -> dict:
+    """A copy of the second-pass counts since the last reset."""
+    with _count_lock:
+        return dict(SECOND_PASSES)
 
 
 # -- plain version ----------------------------------------------------------
@@ -508,15 +533,17 @@ def _check_index_range(name: str, n: int, m: int, d: int, s: int,
                          "exceed the kernels' 32-bit index range")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    """Call one C entry point on the current stream; raise on its code."""
+def _launch(name: str, fn, device: torch.device, *args,
+            second_pass: bool = False) -> None:
+    """Call one C entry point on the current stream; raise on its code,
+    else count the launch (:func:`count_launch`)."""
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         msg = (_library().repro_cuda_error_string(rc).decode() if rc > 0
                else "rejected arguments")
         raise RuntimeError(f"{name} launch failed ({rc}): {msg}")
-    LAUNCHES[name] += 1
+    count_launch(name, second_pass)
 
 
 def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -555,9 +582,8 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
             u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
             workspace.data_ptr() if workspace is not None else None,
-            n, m, d, s, KIND_CODES[kind], splits, b)
-    if splits > 1:
-        SECOND_PASSES[KERNEL_NAME] += 1
+            n, m, d, s, KIND_CODES[kind], splits, b,
+            second_pass=splits > 1)
     return out
 
 
@@ -615,9 +641,8 @@ def _bwd_launch(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
             u.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(),
             du.data_ptr(),
             workspace.data_ptr() if workspace is not None else None,
-            n, m, d, s, KIND_CODES[kind], splits, lanes)
-    if splits > 1:
-        SECOND_PASSES[BWD_KERNEL_NAME] += 1
+            n, m, d, s, KIND_CODES[kind], splits, lanes,
+            second_pass=splits > 1)
     return du
 
 

@@ -1,32 +1,41 @@
 """GP serving driver of the port: fit -> export `ServableGP` -> bucketed engine.
 
-Port of the engine mode of ``repro.launch.serve`` (``_fit_gp`` +
-``serve_gp``): a few outer marginal-likelihood steps (pathwise estimator,
-warm-started CG without preconditioner, Adam), export of the solver carry as
-the servable correction matrix, then ``--requests`` requests of 64 test rows
-answered with zero linear solves (eq. 16).
+Port of the in-process modes of ``repro.launch.serve`` (``_fit_gp``,
+``serve_gp``, ``serve_gp_compat``): a few outer marginal-likelihood steps
+(pathwise estimator, warm-started CG without preconditioner, Adam), export
+of the solver carry as the servable correction matrix, then ``--requests``
+requests of 64 test rows answered with zero linear solves (eq. 16).
+``--refresh-every N`` (any N > 0) then runs one warm online refresh into
+the engine (the first 64 test rows appended, ``refresh_into`` with a
+10-epoch budget) before the metrics request. ``--compat`` runs the legacy
+per-request loop instead of the engine (``pathwise_predict`` per request,
+the tail block padded to the request width).
 
     python -m repro_torch.launch.serve --dataset pol --max-n 2000 \\
         --train-steps 10 --requests 20 --buckets 16,64,256
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
 runs the plain PyTorch versions. ``--max-n 0`` serves the full dataset.
+``--http`` (and the reference's replica, admission, monitor and smoke
+flags) belong to the HTTP/cluster layer, which is not ported yet: the flag
+is refused with a message.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.driver import FitResult, fit
-from repro_torch.core.outer import OuterConfig
-from repro_torch.core.predict import predictive_metrics
+from repro_torch.core.outer import OuterConfig, OuterState
+from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.data.synthetic import Dataset, load_dataset
 from repro_torch.serve.artifact import export_servable
 from repro_torch.serve.engine import BucketedEngine
+from repro_torch.serve.refresh import OnlineGP, RefreshReport
 from repro_torch.solvers import SolverConfig
 
 REQUEST_WIDTH = 64
@@ -37,14 +46,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def fit_gp(args):
-    """Load the dataset and fit it as the reference's ``_fit_gp`` does."""
-    ds = load_dataset(args.dataset, max_n=args.max_n, device=args.device)
-    cfg = OuterConfig(
+def gp_config(args) -> OuterConfig:
+    """The reference's ``_fit_gp`` configuration, with the port's flags."""
+    return OuterConfig(
         estimator="pathwise", warm_start=True, num_probes=args.num_probes,
         solver=SolverConfig(name="cg", max_epochs=100, precond_rank=0),
         num_steps=args.train_steps, bm=512, bn=512, backend=args.backend,
     )
+
+
+def fit_gp(args):
+    """Load the dataset and fit it as the reference's ``_fit_gp`` does."""
+    ds = load_dataset(args.dataset, max_n=args.max_n, device=args.device)
+    cfg = gp_config(args)
     gen = torch.Generator(device=ds.x_train.device).manual_seed(args.seed)
     res = fit(ds.x_train, ds.y_train, cfg, generator=gen, verbose=args.verbose)
     return ds, cfg, res
@@ -57,19 +71,63 @@ class ServeRun(NamedTuple):
     engine: BucketedEngine  # serving the exported model
     dataset: Dataset
     cfg: OuterConfig
-    fit: FitResult
+    fit: Optional[FitResult]  # None when the state was handed over
+    state: OuterState  # the fitted state the engine serves
+    refresh: Optional[RefreshReport] = None  # --refresh-every's refresh
 
 
-def serve_gp(args) -> ServeRun:
-    """Fit, export, then serve ``args.requests`` requests of 64 test rows.
+def serve_gp_compat(args, ds: Dataset, state: OuterState) -> dict:
+    """The reference's legacy per-request loop: ``pathwise_predict`` from
+    the carry per request of 64 rows, the tail block padded to the request
+    width; RMSE/LLH on the first 64 test rows."""
+    width = REQUEST_WIDTH
+    n_test = ds.x_test.shape[0]
+    device = ds.x_train.device
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(args.requests):
+            lo = (i * width) % max(1, n_test)
+            xq = ds.x_test[lo:lo + width]
+            if xq.shape[0] < width:  # pad the tail block to the width
+                xq = torch.cat([xq, xq.new_zeros((width - xq.shape[0],
+                                                  xq.shape[1]))])
+            pathwise_predict(ds.x_train, xq, state.carry_v, state.probes,
+                             state.params)
+            _sync(device)
+        dt = time.perf_counter() - t0
+        m = predictive_metrics(
+            ds.y_test[:width],
+            pathwise_predict(ds.x_train, ds.x_test[:width], state.carry_v,
+                             state.probes, state.params), state.params)
+    report = {"requests": args.requests, "request_rows": width,
+              "serve_seconds": dt,
+              "queries_per_s": args.requests * width / dt,
+              "rmse": float(m["rmse"]), "llh": float(m["llh"])}
+    print(f"[serve-gp compat] {args.requests} requests x {width} in {dt:.2f}s "
+          f"({report['queries_per_s']:.1f} q/s) — ZERO solves at serve time; "
+          f"rmse={report['rmse']:.4f} llh={report['llh']:.4f}", flush=True)
+    return report
+
+
+def serve_gp(args, ds: Optional[Dataset] = None,
+             cfg: Optional[OuterConfig] = None,
+             state: Optional[OuterState] = None,
+             refresh_rows: Optional[torch.Tensor] = None) -> ServeRun:
+    """Fit (unless ``ds``, ``cfg`` and ``state`` are handed over), export,
+    then serve ``args.requests`` requests of 64 test rows through the
+    engine. ``refresh_rows`` hands over the base noise of
+    ``--refresh-every``'s appended rows.
 
     The report's RMSE/LLH are on the first request's rows, as the
-    reference's.
+    reference's (after the refresh, when there is one).
     """
-    ds, cfg, res = fit_gp(args)
+    res = None
+    if ds is None:
+        ds, cfg, res = fit_gp(args)
+        state = res.state
     device = ds.x_train.device
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    model = export_servable(res.state, ds.x_train)
+    model = export_servable(state, ds.x_train)
     engine = BucketedEngine(model, buckets=buckets)
     engine.warmup()
     _sync(device)
@@ -85,11 +143,24 @@ def serve_gp(args) -> ServeRun:
         lat.append(time.perf_counter() - ts)
     dt = time.perf_counter() - t0
 
+    refresh = None
+    if args.refresh_every and n_test > 0:
+        blk = min(REQUEST_WIDTH, n_test)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        online = OnlineGP(ds.x_train, ds.y_train, state, cfg, generator=gen)
+        online.append(ds.x_test[:blk], ds.y_test[:blk], rows=refresh_rows)
+        refresh = online.refresh_into(engine, budget_epochs=10.0)
+        print(f"[serve-gp] online refresh: +{blk} rows -> n={refresh.n}, "
+              f"{refresh.epochs:.1f} epochs, res_y={refresh.res_y:.3f}",
+              flush=True)
+
     m = predictive_metrics(ds.y_test[:REQUEST_WIDTH],
                            engine.submit(ds.x_test[:REQUEST_WIDTH]),
-                           res.state.params)
+                           state.params)
     p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
-    h = res.history
+    h = res.history if res is not None else {
+        k: [] for k in ("res_y", "res_z", "iters", "mvms", "host_syncs",
+                        "step_time_s")}
     report = {
         "dataset": ds.name,
         "n_train": int(ds.x_train.shape[0]),
@@ -104,9 +175,10 @@ def serve_gp(args) -> ServeRun:
              "seconds": float(h["step_time_s"][i])}
             for i in range(len(h["res_y"]))
         ],
-        "fit_seconds": res.wall_time_s,
+        "fit_seconds": res.wall_time_s if res is not None else 0.0,
         "cg_mvms": int(np.sum(h["mvms"])),
         "engine_dispatches": len(engine.buckets) + engine.stats.batches,
+        "refresh": None if refresh is None else refresh._asdict(),
         "requests": args.requests,
         "request_rows": REQUEST_WIDTH,
         "serve_seconds": dt,
@@ -121,7 +193,8 @@ def serve_gp(args) -> ServeRun:
           f"({report['queries_per_s']:.1f} q/s, p50={p50:.1f}ms "
           f"p99={p99:.1f}ms) — buckets={buckets}, ZERO solves at serve time; "
           f"rmse={report['rmse']:.4f} llh={report['llh']:.4f}", flush=True)
-    return ServeRun(report=report, engine=engine, dataset=ds, cfg=cfg, fit=res)
+    return ServeRun(report=report, engine=engine, dataset=ds, cfg=cfg,
+                    fit=res, state=state, refresh=refresh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,12 +218,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "streamed or dense")
     ap.add_argument("--verbose", action="store_true",
                     help="print one line per outer step")
+    ap.add_argument("--compat", action="store_true",
+                    help="legacy per-request GP loop (pathwise_predict per "
+                         "request, tail padded)")
+    ap.add_argument("--refresh-every", type=int, default=0,
+                    help="if set, run one warm online refresh after serving")
+    ap.add_argument("--http", default=None, metavar="HOST:PORT",
+                    help="refused: the HTTP/cluster layer is not ported yet")
     return ap
 
 
 def main(argv=None):
-    """CLI entry: parse flags and run :func:`serve_gp`."""
-    serve_gp(build_parser().parse_args(argv))
+    """CLI entry: parse flags, then fit and run :func:`serve_gp_compat`
+    under ``--compat``, else :func:`serve_gp`."""
+    args = build_parser().parse_args(argv)
+    if args.http:
+        raise SystemExit(
+            "--http needs the HTTP/cluster serving layer, which the port "
+            "does not have yet (ROADMAP Queue 1 item 4)")
+    if args.compat:
+        ds, _, res = fit_gp(args)
+        serve_gp_compat(args, ds, res.state)
+    else:
+        serve_gp(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,48 @@
+"""Stdlib-only observability of the port: metrics, traces, event logs.
+
+The port's copies of the in-process half of ``repro.obs``:
+
+  * :mod:`repro_torch.obs.metrics` — the thread-safe counter / gauge /
+    histogram registry with label support and EWMA gauges, rendered in
+    Prometheus text exposition format 0.0.4;
+  * :mod:`repro_torch.obs.trace` — trace-ID minting and sanitising, span
+    timing contexts, and the JSON-lines structured event log.
+
+The engine, the online refresher and ``fit(event_log=)`` report through
+them. The fleet-level half of the reference (``obs.slo``, the burn-rate
+alert engine, and ``obs.scrape``, the exposition parser and fleet scraper)
+comes with the port of the HTTP/cluster serving layer.
+"""
+from repro_torch.obs.metrics import (
+    NULL_REGISTRY,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    NullRegistry,
+    bucket_fraction_le,
+    default_registry,
+    quantile_from_buckets,
+    render_prometheus,
+)
+from repro_torch.obs.trace import (
+    TRACE_HEADER,
+    EventLog,
+    configure,
+    current_trace_id,
+    emit,
+    get_event_log,
+    new_trace_id,
+    sanitize_trace_id,
+    span,
+    trace_context,
+)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullRegistry",
+    "NULL_REGISTRY", "bucket_fraction_le", "default_registry",
+    "quantile_from_buckets", "render_prometheus",
+    "TRACE_HEADER", "EventLog", "configure", "current_trace_id", "emit",
+    "get_event_log", "new_trace_id", "sanitize_trace_id", "span",
+    "trace_context",
+]

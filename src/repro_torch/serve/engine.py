@@ -1,51 +1,47 @@
-"""Shape-bucketed prediction engine (synchronous path of ``repro.serve.engine``).
+"""Shape-bucketed microbatching prediction engine; port of
+``repro.serve.engine``.
 
 Every query batch is zero-padded to one of a few row buckets and answered
-with one cross-kernel MVM (eq. 16); queries larger than the largest bucket
-are chunked, and results are sliced back to the request's rows. PyTorch runs
-eagerly, so there is no executable cache: :meth:`BucketedEngine.num_compiles`
-returns None ("accounting unavailable"), as the reference's contract allows.
-The queue worker and the Prometheus metrics arrive with a later slice.
+with one cross-kernel MVM (eq. 16): on the card, one launch of the forward
+tile kernel. Queries larger than the largest bucket are chunked, and
+results are sliced back to the request's rows before they leave the
+engine. Queued requests (:meth:`BucketedEngine.enqueue`) are coalesced by a
+worker thread into shared bucket runs. PyTorch runs eagerly, so there is no
+executable cache: :meth:`BucketedEngine.num_compiles` returns None
+("accounting unavailable"), as the reference's contract allows.
+
+Threads and the card: the worker launches on its current stream, which
+for a new thread is the device's default stream, the one the caller's
+thread launches on too. So a request's result (a CUDA tensor the Future
+hands over, possibly still being computed) is ordered before anything its
+consumer launches next, and a model swapped in by another thread on that
+stream is fully written before the next dispatch reads it.
 """
 from __future__ import annotations
 
 import math
+import queue
 import threading
 import time
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core.predict import Predictions
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.artifact import ServableGP, servable_predict
 
 DEFAULT_BUCKETS = (16, 64, 256)
 
+# Version of the stats wire format (`EngineStats.as_dict`), the reference's.
 STATS_SCHEMA_VERSION = 3
 
-# Dispatch-latency histogram boundaries (seconds), as in the reference.
-_LATENCY_BOUNDS = (
-    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
-    0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
-)
-
-
-def _quantile_from_buckets(bounds, cum_counts, q: float) -> float:
-    """Prometheus ``histogram_quantile`` over cumulative bucket counts."""
-    total = cum_counts[-1]
-    if total <= 0:
-        return math.nan
-    target = q * total
-    for i, bound in enumerate(bounds):
-        if cum_counts[i] >= target:
-            lo = bounds[i - 1] if i > 0 else 0.0
-            below = cum_counts[i - 1] if i > 0 else 0.0
-            in_bucket = cum_counts[i] - below
-            if in_bucket <= 0:
-                return bound
-            return lo + (bound - lo) * (target - below) / in_bucket
-    return bounds[-1]
+# Batch-latency buckets for the in-process p50/p99 estimate: the boundaries
+# the Prometheus histogram uses, so stats and scrape-side quantiles agree.
+_LATENCY_BOUNDS = obs_metrics.DEFAULT_BUCKETS
 
 
 def pad_to_bucket(xq: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -67,7 +63,11 @@ def _slice_rows(pred: Predictions, lo: int, hi: int) -> Predictions:
 
 @dataclass
 class EngineStats:
-    """Cumulative serving counters (padding waste is the bucketing tax)."""
+    """Cumulative serving counters (padding waste is the bucketing tax).
+
+    Updated from both the caller thread (sync `submit`) and the queue worker,
+    so increments go through an internal lock.
+    """
 
     requests: int = 0  #: guarded by self._lock
     batches: int = 0  #: guarded by self._lock
@@ -109,8 +109,8 @@ class EngineStats:
             for c in self.latency_counts:
                 running += c
                 cum.append(float(running))
-            p50 = _quantile_from_buckets(_LATENCY_BOUNDS, cum, 0.5)
-            p99 = _quantile_from_buckets(_LATENCY_BOUNDS, cum, 0.99)
+            p50 = obs_metrics.quantile_from_buckets(_LATENCY_BOUNDS, cum, 0.5)
+            p99 = obs_metrics.quantile_from_buckets(_LATENCY_BOUNDS, cum, 0.99)
             return {
                 "ts": time.time(),
                 "schema_version": STATS_SCHEMA_VERSION,
@@ -128,22 +128,59 @@ class EngineStats:
 
 
 class BucketedEngine:
-    """Serve `ServableGP` predictions with bucketed query shapes."""
+    """Serve `ServableGP` predictions with bucketed shapes and a request
+    queue.
+
+    Synchronous path: :meth:`submit` pads, runs, slices. Asynchronous path:
+    :meth:`enqueue` returns a `Future`; a worker thread drains the queue,
+    coalescing same-model requests into shared bucket runs. ``registry``
+    (default: the process-wide one; ``obs.NULL_REGISTRY`` switches the
+    instruments off) receives the six ``gp_engine_*`` instruments.
+    """
 
     def __init__(self, model: Optional[ServableGP] = None,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 registry: Optional[obs_metrics.MetricsRegistry] = None):
         if not buckets:
             raise ValueError("need at least one bucket size")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
-        self._model = model
+        self._model = model  #: guarded by self._model_lock
+        self._model_lock = threading.Lock()
+        reg = obs_metrics.default_registry() if registry is None else registry
+        self._m_requests = reg.counter(
+            "gp_engine_requests_total", "Requests served by the engine")
+        self._m_batches = reg.counter(
+            "gp_engine_batches_total", "Jitted bucket executions",
+            labelnames=("bucket",))
+        self._m_rows = reg.counter(
+            "gp_engine_rows_total", "Query rows executed by kind",
+            labelnames=("kind",))  # kind: real | padded
+        self._m_coalesced = reg.counter(
+            "gp_engine_coalesced_total",
+            "Requests that shared a microbatch with another")
+        self._m_queue_depth = reg.gauge(
+            "gp_engine_queue_depth", "Requests waiting in the engine queue")
+        self._m_batch_seconds = reg.histogram(
+            "gp_engine_batch_seconds", "Engine dispatch latency per bucket",
+            labelnames=("bucket",))
         self.stats = EngineStats()
+        self._queue: queue.Queue = queue.Queue()
+        self._worker: Optional[threading.Thread] = None
+        self._stop = threading.Event()
 
+    # -- model management ---------------------------------------------------
     @property
     def model(self) -> ServableGP:
-        """The served artifact (raises when the engine was built without one)."""
-        if self._model is None:
-            raise RuntimeError("engine has no model; pass one to BucketedEngine")
-        return self._model
+        """The currently served artifact (raises before the first swap)."""
+        with self._model_lock:
+            if self._model is None:
+                raise RuntimeError("engine has no model; pass one or swap_model")
+            return self._model
+
+    def swap_model(self, model: ServableGP) -> None:
+        """Atomically replace the served model (the refresh handoff)."""
+        with self._model_lock:
+            self._model = model
 
     def warmup(self, model: Optional[ServableGP] = None) -> Optional[int]:
         """Run every bucket once (first-use allocations); returns None.
@@ -166,6 +203,19 @@ class BucketedEngine:
         """`EngineStats.as_dict` with this engine's compile count."""
         return self.stats.as_dict(num_compiles=self.num_compiles())
 
+    def _observe(self, bucket: int, batch_rows: int, num_requests: int,
+                 dur_s: float) -> None:
+        """Fold one dispatch into stats + metrics (both paths share this)."""
+        self.stats.record(bucket, batch_rows, num_requests, dur_s=dur_s)
+        self._m_requests.inc(num_requests)
+        self._m_batches.inc(bucket=str(bucket))
+        self._m_rows.inc(batch_rows, kind="real")
+        self._m_rows.inc(bucket - batch_rows, kind="padded")
+        if num_requests > 1:
+            self._m_coalesced.inc(num_requests)
+        self._m_batch_seconds.observe(dur_s, bucket=str(bucket))
+
+    # -- synchronous serving ------------------------------------------------
     def bucket_for(self, m: int) -> int:
         """Smallest bucket covering ``m`` rows (largest bucket if none)."""
         for b in self.buckets:
@@ -191,7 +241,92 @@ class BucketedEngine:
                 samples=torch.cat([p.samples for p in parts]),
             )
         bucket = self.bucket_for(m)
-        t0 = time.perf_counter()
-        pred = servable_predict(model, pad_to_bucket(xq, bucket))
-        self.stats.record(bucket, m, 1, dur_s=time.perf_counter() - t0)
+        with obs_trace.span("engine.submit", bucket=bucket, rows=m):
+            t0 = time.perf_counter()
+            pred = servable_predict(model, pad_to_bucket(xq, bucket))
+            self._observe(bucket, m, 1, time.perf_counter() - t0)
         return _slice_rows(pred, 0, m)
+
+    # -- queued / microbatched serving --------------------------------------
+    def enqueue(self, xq: torch.Tensor,
+                model: Optional[ServableGP] = None) -> Future:
+        """Queue a request; the worker thread resolves the returned Future."""
+        fut: Future = Future()
+        self._queue.put((xq, model, fut))
+        self._m_queue_depth.set(self._queue.qsize())
+        if self._worker is None:
+            self.start()
+        return fut
+
+    def start(self) -> None:
+        """Start the microbatching worker thread (idempotent)."""
+        if self._worker is not None:
+            return
+        self._stop.clear()
+        self._worker = threading.Thread(
+            target=self._worker_loop, name="serve-engine", daemon=True)
+        self._worker.start()
+
+    def stop(self) -> None:
+        """Stop the worker thread, draining the queue first."""
+        if self._worker is None:
+            return
+        self._stop.set()
+        self._queue.put(None)  # wake the worker
+        self._worker.join(timeout=10.0)
+        self._worker = None
+
+    def _worker_loop(self) -> None:
+        while not self._stop.is_set():
+            item = self._queue.get()
+            self._m_queue_depth.set(self._queue.qsize())
+            if item is None:
+                continue
+            self._run_coalesced(item)
+
+    def _run_coalesced(self, first) -> None:
+        """One microbatch: the head request plus any queued same-model
+        requests that still fit in the largest bucket. An error fails every
+        request of the batch through its Future."""
+        batch = [first]
+        total = first[0].shape[0]
+        bmax = self.buckets[-1]
+        while total < bmax:
+            try:
+                nxt = self._queue.queue[0]  # peek
+            except IndexError:
+                break
+            if nxt is None:
+                break
+            if nxt[1] is not first[1]:  # different explicit model: own batch
+                break
+            if total + nxt[0].shape[0] > bmax:
+                break
+            self._queue.get()
+            batch.append(nxt)
+            total += nxt[0].shape[0]
+        self._m_queue_depth.set(self._queue.qsize())
+
+        try:
+            model = first[1] if first[1] is not None else self.model
+            xq = (batch[0][0] if len(batch) == 1
+                  else torch.cat([b[0] for b in batch]))
+            bucket = self.bucket_for(total)
+            if total > bucket:  # only when a single oversized request
+                pred = self.submit(xq, model=model)
+            else:
+                t0 = time.perf_counter()
+                pred = _slice_rows(
+                    servable_predict(model, pad_to_bucket(xq, bucket)),
+                    0, total)
+                self._observe(bucket, total, len(batch),
+                              time.perf_counter() - t0)
+            lo = 0
+            for xq_i, _, fut in batch:
+                hi = lo + xq_i.shape[0]
+                fut.set_result(_slice_rows(pred, lo, hi))
+                lo = hi
+        except Exception as e:  # surface errors through the futures
+            for _, _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(e)

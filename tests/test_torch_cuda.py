@@ -475,3 +475,127 @@ def test_cuda_lane_solve_matches_single_solves():
             assert one.iters == int(res.iters[i])
             rel = ((res.v[i] - one.v).norm() / one.v.norm()).item()
             assert rel < 1e-3
+
+
+# The block refresh's shapes at full pol (12150 rows, d = 26, s = 65): the
+# k x cap cross-MVM against the carry, the cap x k one against dv, and the
+# k x k operator of the block solve, at k = 1 (a BO round), 7 and 64.
+REFRESH_K = (1, 7, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", REFRESH_K)
+@pytest.mark.parametrize("orient", ["k_by_cap", "cap_by_k", "k_by_k"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_fwd_refresh_shapes_match_plain(kind, orient, k):
+    """On a card: the forward kernel at the block refresh's shapes (n = 1
+    against the whole column range; m = 1, where the 3xTF32 product's
+    K-dimension is almost all padding; n = m = 1) against its plain
+    version, at the tolerances of ``test_cuda_fwd_kernel_matches_plain``."""
+    _cuda_or_skip()
+    cap = 12150
+    n, m = {"k_by_cap": (k, cap), "cap_by_k": (cap, k), "k_by_k": (k, k)}[orient]
+    u, w, v = _fwd_inputs(n, m, 26, 65, seed=k)
+    if orient == "k_by_k":
+        w = u
+    got = tiled.kernel_mvm_cuda(u, w, v, kind).double()
+    if kind == "matern12":
+        ref, tol = tiled.kernel_mvm_plain(u.double(), w.double(), v.double(),
+                                          kind), 1e-4
+    else:
+        ref, tol = tiled.kernel_mvm_plain(u, w, v, kind).double(), 1e-5
+    err = (got - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_ghost_rows_are_inert(kind):
+    """Ghost rows at the coordinates geometric growth gives them (~1e5
+    after scaling): the kernel's direct-difference ``r2`` stays finite, the
+    ghost diagonal is ``kappa(0)`` (1, or Matérn-1/2's floored profile, as
+    its plain version), and every cross term, Matérn-1/2's exp(-256) the
+    slowest, underflows to exactly 0."""
+    _cuda_or_skip()
+    from repro_torch.gp.kernels_math import profile_from_r2
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    real = 0.5 * torch.randn((300, 26), generator=gen, device="cuda")
+    unit = 256.0 * (float(real.abs().max()) + 1.0 + 1.0)
+    ghosts = (torch.arange(1, 65, device="cuda", dtype=torch.float32)[:, None]
+              * unit * torch.ones((1, 26), device="cuda"))
+    u = torch.cat([real, ghosts])
+    eye = torch.eye(u.shape[0], device="cuda")
+    k = tiled.kernel_mvm_cuda(u, u, eye, kind)
+    assert torch.isfinite(k).all()
+    kappa0 = profile_from_r2(kind)(torch.zeros((), device="cuda"),
+                                   torch.ones((), device="cuda"))
+    g = slice(300, None)
+    assert torch.equal(torch.diagonal(k[g, g]),
+                       kappa0.expand(64).to(k.dtype))
+    off = k[g] - torch.diag_embed(torch.diagonal(k))[g]
+    assert torch.all(off == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_and_engine_match_cpu():
+    """A small OnlineGP on the card (block + damped auto, then a solve,
+    both through the forward kernel) against the same refines on the CPU
+    from the same state and rows, and the engine's queue on the card
+    against its synchronous path: iterations equal, carries within 1e-4 of
+    their largest entry, predictions within 1e-4."""
+    _cuda_or_skip()
+    from repro_torch.core.driver import fit
+    from repro_torch.core.outer import OuterConfig
+    from repro_torch.serve import BucketedEngine, OnlineGP
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, (300, 3)).astype(np.float32)
+    y = np.sin(x.sum(1)).astype(np.float32)
+    x_new = rng.uniform(-2, 2, (12, 3)).astype(np.float32)
+    y_new = np.cos(x_new.sum(1)).astype(np.float32)
+    rows = rng.normal(size=(12, 8)).astype(np.float32)
+    cfg = OuterConfig(estimator="pathwise", num_probes=8, num_rff_pairs=64,
+                      solver=SolverConfig(name="cg", tolerance=1e-2,
+                                          precond_rank=0),
+                      num_steps=2, backend="cuda")
+    state = fit(torch.tensor(x), torch.tensor(y), cfg,
+                generator=torch.Generator().manual_seed(0)).state
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = state._replace(
+            params=state.params.with_leaves([t.to(dev) for t in
+                                             state.params.leaves]),
+            probes=state.probes._replace(
+                rff=state.probes.rff._replace(
+                    z=state.probes.rff.z.to(dev), u=state.probes.rff.u.to(dev),
+                    w=state.probes.rff.w.to(dev)),
+                w_eps=state.probes.w_eps.to(dev)),
+            carry_v=state.carry_v.to(dev))
+        o = OnlineGP(torch.tensor(x, device=dev), torch.tensor(y, device=dev),
+                     st, cfg)
+        o.append(torch.tensor(x_new[:6], device=dev),
+                 torch.tensor(y_new[:6], device=dev),
+                 rows=torch.tensor(rows[:6], device=dev))
+        r1 = o.refine(mode="auto", correction="damped")
+        o.append(torch.tensor(x_new[6:], device=dev),
+                 torch.tensor(y_new[6:], device=dev),
+                 rows=torch.tensor(rows[6:], device=dev))
+        r2 = o.refine(mode="solve", budget_epochs=5.0)
+        out[dev] = (o, r1, r2)
+    (oc, c1, c2), (og, g1, g2) = out["cpu"], out["cuda"]
+    assert (g1.iters, g1.corrected, g1.escalated) == (c1.iters, c1.corrected,
+                                                       c1.escalated)
+    assert g2.iters == c2.iters == 5
+    cv = oc.state.carry_v
+    assert (og.state.carry_v.cpu() - cv).abs().max() <= 1e-4 * cv.abs().max()
+    engine = BucketedEngine(og.export(), buckets=(16, 64))
+    xq = torch.tensor(rng.uniform(-2, 2, (40, 3)).astype(np.float32),
+                      device="cuda")
+    try:
+        futs = [engine.enqueue(xq[i:i + 8]) for i in range(0, 40, 8)]
+        got = torch.cat([f.result(timeout=60).mean for f in futs])
+    finally:
+        engine.stop()
+    want = engine.submit(xq).mean
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

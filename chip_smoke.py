@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
-refresh.
+refresh, serve over HTTP.
 
     python3 chip_smoke.py
 
@@ -115,6 +115,26 @@ Phases, each printing JSON lines:
    and cold arms; warm cumulative epochs <= 0.5 x cold, launches held to
    the fit's MVMs and every round's dispatch and refresh products.
 
+11. http (since the HTTP/cluster slice), on the model phase 3 fitted at full
+   pol: (a) ``serve_gp_http`` with ``--http 127.0.0.1:0 --http-smoke
+   --metrics`` (rate 1/s, burst 2: health, predict, the 429 flood with
+   Retry-After, the trace echo, the /metrics families; forward launches =
+   warm-up + dispatches), then 200 sequential 64-row and 200 16-row
+   ``/predict`` requests to an in-process replica without a rate limit:
+   p50/p99 over HTTP beside ``engine.submit``'s, every reply bitwise equal
+   to ``engine.submit`` on its rows, one launch per dispatch; (b) the model
+   published to a temporary store, ``--replicas 2 --monitor 127.0.0.1:0
+   --fleet-smoke`` worker processes on the card (start-up seconds, device
+   memory per worker, replies bitwise equal to this process's engine, then
+   ``_fleet_smoke_probe``: aggregate == per-replica counters, health ==
+   /stats, a kill to ``replica_up = 0`` and to PAGE in seconds), the killed
+   replica respawned, and the model phase 9 refreshed published as v2:
+   both replicas on v2 within 10 poll intervals, replies bitwise equal to
+   an engine on v2; (c) ``POST /append`` of 64 rows into a
+   ``--refresh-every`` replica (``/stats``'s refresh block shows them),
+   then the refine into the replica, its forward launches =
+   ``RefreshReport.mvms``.
+
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
 line, when there is no CUDA device, when run outside the repository, or when
@@ -125,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1040,6 +1061,308 @@ def phase_bo(torch, tiled) -> tuple:
     if problems:
         raise AssertionError("; ".join(problems))
     return launches, second
+
+
+# The HTTP phase (since the HTTP/cluster slice): request counts and widths of
+# the latency runs, the fleet's poll interval and the patience for v2.
+HTTP_REQUESTS = 200
+HTTP_WIDTHS = (64, 16)
+HTTP_POLL_S = 0.5  # the worker's default poll interval
+HTTP_V2_POLLS = 10
+
+
+def _compute_apps_mib() -> dict:
+    """Device memory per process on the card, ``{pid: MiB}``, from
+    ``nvidia-smi --query-compute-apps``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30)
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit() and mib.strip().isdigit():
+            apps[int(pid)] = int(mib)
+    return apps
+
+
+def _serve_args(*argv):
+    from repro_torch.launch.serve import build_parser
+
+    return build_parser().parse_args(
+        ["--buckets", "16,64,256", "--seed", "0", *argv])
+
+
+def _bitwise(body, pred) -> bool:
+    """Whether a /predict reply's mean and var equal ``pred``'s bit for bit
+    (JSON carries each float32 exactly)."""
+    import numpy as np
+
+    return all(np.array_equal(np.float32(body[k]),
+                              getattr(pred, k).cpu().numpy())
+               for k in ("mean", "var"))
+
+
+def _pct(values, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def phase_http(torch, tiled, serve_run, v2_model) -> list:
+    """Phase 11 on the model phase 3 fitted at full pol: (a) the in-process
+    replica through ``serve_gp_http --http-smoke --metrics``, then 200
+    sequential 64-row and 200 16-row ``/predict`` requests on a replica
+    without a rate limit (p50/p99, each reply bitwise equal to
+    ``engine.submit``, forward launches = warm-up + dispatches); (b) a store
+    and ``--replicas 2 --monitor --fleet-smoke`` workers on the card
+    (start-up seconds, device memory, bitwise replies before the kill,
+    ``_fleet_smoke_probe``'s whole sequence, a respawn, then ``v2_model``
+    published and picked up by both); (c) ``POST /append`` of 64 rows into
+    a ``--refresh-every`` replica and the refine that absorbs them. Returns
+    the counted paths' launch counts."""
+    import tempfile
+
+    from repro_torch.launch.serve import (
+        _fleet_smoke_probe,
+        serve_gp_http,
+        start_gp_http,
+    )
+    from repro_torch.serve import BucketedEngine, export_servable
+    from repro_torch.serve.cluster import publish_servable
+    from repro_torch.serve.cluster.replica import _http_json
+
+    ds, cfg, state = serve_run.dataset, serve_run.cfg, serve_run.state
+    n_test = ds.x_test.shape[0]
+    v1_model = export_servable(state, ds.x_train)
+    if v2_model.n == v1_model.n:
+        raise AssertionError("v2 must be the model the refresh phase grew")
+    counted, problems, seconds = [], [], {}
+
+    def post(url, payload):
+        status, body = _http_json(url, payload, timeout=60)
+        if status != 200:
+            raise AssertionError(f"{url} -> {status}: {body}")
+        return body
+
+    def count(run):
+        """Run ``run`` with the counts set to 0 just before and read just
+        after; returns its result and the counts."""
+        torch.cuda.synchronize()
+        tiled.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        launches = tiled.launch_counts()
+        counted.append((launches, tiled.second_pass_counts()))
+        return out, launches
+
+    # (a) the in-process replica's smoke: health, predict, the 429 flood
+    # with Retry-After, the trace echo and the /metrics families.
+    t0 = time.perf_counter()
+    args = _serve_args("--http", "127.0.0.1:0", "--http-smoke", "--metrics",
+                       "--admission-qps", "1", "--admission-burst", "2")
+    smoke, launches = count(lambda: serve_gp_http(args, ds, cfg, state))
+    engine = smoke.frontend.target.engine
+    want = len(engine.buckets) + engine.stats.batches
+    rec = {"phase": "http", "run": "a_smoke",
+           "engine_dispatches": engine.stats.batches,
+           "warmup_dispatches": len(engine.buckets),
+           "kernel_launches": launches[tiled.KERNEL_NAME],
+           "expected_launches": want,
+           "admission": smoke.frontend.admission.as_dict()}
+    emit(rec)
+    if launches[tiled.KERNEL_NAME] != want:
+        problems.append(f"(a) smoke launches {rec['kernel_launches']} != "
+                        f"{want}")
+    seconds["a_smoke"] = time.perf_counter() - t0
+
+    # (a) latency and bitwise replies on a replica without a rate limit.
+    t0 = time.perf_counter()
+    serving = start_gp_http(_serve_args("--http", "127.0.0.1:0"), ds, cfg,
+                            state)
+    url = serving.endpoints[0]
+    server = serving.frontend.target
+    reqs = [(w, slice(lo, lo + w)) for w in HTTP_WIDTHS
+            for lo in ((i * w) % (n_test - w) for i in range(HTTP_REQUESTS))]
+    payloads = [{"x": ds.x_test[rows].cpu().tolist()} for _, rows in reqs]
+    try:
+        def drive():
+            out = []
+            for payload in payloads:
+                ts = time.perf_counter()
+                body = post(url + "/predict", payload)
+                out.append((time.perf_counter() - ts, body))
+            return out
+
+        # The replica's start ran the warm-up: only dispatches are counted.
+        replies, launches = count(drive)
+        dispatches = server.engine.stats.batches
+        model = server.get("default")
+        mismatched, engine_ms = 0, []
+        for (_, rows), (_, body) in zip(reqs, replies):
+            ts = time.perf_counter()
+            pred = server.engine.submit(ds.x_test[rows], model=model)
+            torch.cuda.synchronize()
+            engine_ms.append((time.perf_counter() - ts) * 1e3)
+            mismatched += not _bitwise(body, pred)
+    finally:
+        serving.close()
+    lat = {}
+    for w in HTTP_WIDTHS:
+        idx = [i for i, (width, _) in enumerate(reqs) if width == w]
+        http_ms = [replies[i][0] * 1e3 for i in idx]
+        lat[str(w)] = {"http_p50_ms": _pct(http_ms, 50),
+                       "http_p99_ms": _pct(http_ms, 99),
+                       "engine_p50_ms": _pct([engine_ms[i] for i in idx], 50),
+                       "engine_p99_ms": _pct([engine_ms[i] for i in idx], 99)}
+    rec = {"phase": "http", "run": "a_latency", "requests": len(reqs),
+           "latency": lat,
+           "serve_phase_engine_p50_ms_64_rows":
+               serve_run.report["latency_ms_p50"],
+           "replies_not_bitwise_equal": mismatched,
+           "engine_dispatches": dispatches,
+           "kernel_launches": launches[tiled.KERNEL_NAME],
+           "expected_launches": dispatches}
+    emit(rec)
+    summary = {"latency": lat}
+    if launches[tiled.KERNEL_NAME] != dispatches or dispatches != len(reqs):
+        problems.append(f"(a) {launches[tiled.KERNEL_NAME]} launches, "
+                        f"{dispatches} dispatches, {len(reqs)} requests")
+    if mismatched:
+        problems.append(f"(a) {mismatched} replies differ from engine.submit")
+    seconds["a_latency"] = time.perf_counter() - t0
+
+    # (b) the store and two replica processes on the card.
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    args = _serve_args("--http", "127.0.0.1:0", "--replicas", "2",
+                       "--artifact-store", f"{tmp}/store", "--monitor",
+                       "127.0.0.1:0", "--fleet-smoke", "--request-log",
+                       f"{tmp}/logs")
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    serving = start_gp_http(args, ds, cfg, state)
+    sup = serving.supervisor
+    try:
+        free1 = torch.cuda.mem_get_info()[0]
+        rec = {"phase": "http", "run": "b_fleet", "version": serving.version,
+               "startup_s": list(sup.startup_s)}
+        # Per worker by pid where nvidia-smi's pids are this machine's; the
+        # card's free memory before and after both workers started (this
+        # process's own allocations in between: the re-exported artifact's
+        # correction, 3 MB at pol).
+        apps = _compute_apps_mib()
+        rec["device_mib"] = {f"replica_{i}": apps.get(p.pid, "not measured")
+                             for i, p in enumerate(sup._procs)}
+        rec["nvidia_smi_compute_apps_mib"] = apps
+        rec["workers_device_mib_from_free_memory"] = (free0 - free1) / 2**20
+        xq = ds.x_test[:64]
+        parent = BucketedEngine(v1_model, buckets=(16, 64, 256)).submit(xq)
+        v1_equal = [_bitwise(post(ep + "/predict", {"x": xq.cpu().tolist()}),
+                             parent) for ep in serving.endpoints]
+        rec["v1_bitwise_equal"] = v1_equal
+        rec.update(_fleet_smoke_probe(sup, serving.monitor,
+                                      serving.monitor_ep, serving.endpoints,
+                                      serving.xq))
+        restarted = sup.check()
+        t_respawn = time.monotonic()
+        endpoints = None
+        while time.monotonic() - t_respawn < 300:
+            targets = sup.targets()
+            try:
+                if all(_http_json(u + "/healthz", timeout=2.0)[0] == 200
+                       for u in targets.values()) and len(targets) == 2:
+                    endpoints = list(targets.values())
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        rec["respawned"] = restarted
+        rec["respawn_s"] = time.monotonic() - t_respawn
+        if endpoints is None:
+            raise AssertionError("(b) the killed replica did not come back")
+        t_pub = time.monotonic()
+        v2 = publish_servable(f"{tmp}/store", v2_model)
+        on_v2 = set()
+        while time.monotonic() - t_pub < HTTP_V2_POLLS * HTTP_POLL_S \
+                and len(on_v2) < 2:
+            for ep in endpoints:
+                if _http_json(ep + "/healthz")[1].get("version") == v2:
+                    on_v2.add(ep)
+            time.sleep(0.02)
+        rec["swap_s"] = time.monotonic() - t_pub
+        rec["replicas_on_v2"] = len(on_v2)
+        parent = BucketedEngine(v2_model, buckets=(16, 64, 256)).submit(xq)
+        v2_replies = [post(ep + "/predict", {"x": xq.cpu().tolist()})
+                      for ep in endpoints]
+        rec["v2_bitwise_equal"] = [_bitwise(b, parent) for b in v2_replies]
+        rec["v2_versions"] = [b["version"] for b in v2_replies]
+        rec["replica_dispatches"] = [
+            _http_json(ep + "/stats")[1]["engine"]["batches"]
+            for ep in endpoints]
+    finally:
+        serving.close()
+    rec["request_logs"] = sorted(os.listdir(f"{tmp}/logs"))
+    emit(rec)
+    summary.update({k: rec[k] for k in (
+        "startup_s", "device_mib", "workers_device_mib_from_free_memory",
+        "kill_to_down_s", "kill_to_page_s",
+        "respawn_s", "swap_s")})
+    if not all(rec["v1_bitwise_equal"]):
+        problems.append(f"(b) v1 replies not bitwise: {rec['v1_bitwise_equal']}")
+    if rec["replicas_on_v2"] != 2 or not all(rec["v2_bitwise_equal"]) or \
+            rec["v2_versions"] != [v2, v2]:
+        problems.append(f"(b) v2: {rec['replicas_on_v2']} replicas, bitwise "
+                        f"{rec['v2_bitwise_equal']}, {rec['v2_versions']}")
+    seconds["b_fleet"] = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) /append into a --refresh-every replica, then the refine.
+    t0 = time.perf_counter()
+    serving = start_gp_http(_serve_args("--http", "127.0.0.1:0",
+                                        "--refresh-every", "1"), ds, cfg, state)
+    url, online = serving.endpoints[0], serving.online
+    server = serving.frontend.target
+    n0 = online.n
+    try:
+        rows = slice(n_test - 64, n_test)
+        reply = post(url + "/append", {"x": ds.x_test[rows].cpu().tolist(),
+                                       "y": ds.y_test[rows].cpu().tolist()})
+        refresh = _http_json(url + "/stats")[1]["refresh"]
+        rep, launches = count(lambda: online.refresh_into(
+            server, name="default", budget_epochs=10.0))
+        xq = ds.x_test[:16]
+        body = post(url + "/predict", {"x": xq.cpu().tolist()})
+        served = server.engine.submit(xq, model=server.get("default"))
+        after = _http_json(url + "/stats")[1]["refresh"]
+    finally:
+        serving.close()
+    rec = {"phase": "http", "run": "c_append", "reply": reply,
+           "refresh_after_append": {k: refresh[k] for k in (
+               "n", "appended_rows", "pending_appends", "refines")},
+           "refresh_after_refine": {k: after[k] for k in (
+               "n", "pending_appends", "refines")},
+           "refine": _report_rec("c", rep), "kernel_launches": launches,
+           "expected_fwd_launches": rep.mvms,
+           "served_n": server.get("default").n,
+           "predict_bitwise_after_refresh": _bitwise(body, served)}
+    emit(rec)
+    if not (reply["appended"] == 64 and refresh["n"] == n0 + 64
+            and refresh["appended_rows"] == 64
+            and refresh["pending_appends"] == 64
+            and after["pending_appends"] == 0
+            and rec["served_n"] == n0 + 64):
+        problems.append(f"(c) append not shown: {rec}")
+    if launches[tiled.KERNEL_NAME] != rep.mvms or rep.mvms == 0:
+        problems.append(f"(c) refine launches {launches} != mvms {rep.mvms}")
+    if not rec["predict_bitwise_after_refresh"]:
+        problems.append("(c) /predict after the refresh differs from the "
+                        "engine")
+    seconds["c_append"] = time.perf_counter() - t0
+    emit({"phase": "http", "run": "summary", "seconds": seconds, **summary})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counted
 
 
 def expected_launches(tiled, h, solver, d, probes, grid=0) -> dict:
@@ -1994,6 +2317,16 @@ def main() -> int:
         traceback.print_exc()
         failures.append("refresh")
     phase_s["refresh"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        if serve_run is None:
+            raise RuntimeError("the http phase needs the serve phase's fit")
+        path_launches.extend(phase_http(torch, tiled, serve_run,
+                                        serve_run.engine.model))
+    except Exception:
+        traceback.print_exc()
+        failures.append("http")
+    phase_s["http"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     try:
         launches, fits = phase_train(torch, tiled)

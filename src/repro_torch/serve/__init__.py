@@ -10,9 +10,8 @@ The in-process half of ``repro.serve``:
     correction, geometric capacity growth)
   * :mod:`repro_torch.serve.multimodel` — several models behind one engine
 
-The reference's multi-process layer (``repro.serve.cluster``: HTTP
-transport, admission control, artifact store, replicas, fleet monitor)
-comes with the port of the HTTP/cluster half.
+The multi-process layer (HTTP transport, admission control, artifact
+store, replicas, fleet monitor) is :mod:`repro_torch.serve.cluster`.
 """
 from repro_torch.serve.artifact import (
     ServableGP,

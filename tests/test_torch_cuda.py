@@ -599,3 +599,135 @@ def test_cuda_refresh_and_engine_match_cpu():
         engine.stop()
     want = engine.submit(xq).mean
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _card_servable(n=300, d=3, s=8, m=64, seed=0):
+    """A servable of random draws on the card (the wire needs no fit)."""
+    from repro_torch.gp.rff import RFFState
+    from repro_torch.serve import ServableGP
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor((scale * rng.normal(size=shape)).astype(
+            np.float32), device="cuda")
+
+    params = HyperParams(*(torch.tensor(v, device="cuda") for v in (
+        np.full(d, 0.3, np.float32), np.float32(0.5), np.float32(-1.0))),
+        kernel="matern32")
+    return ServableGP(x=t(n, d), correction=t(n, 1 + s),
+                      rff=RFFState(z=t(m, d), u=torch.tensor(
+                          rng.chisquare(3, size=m).astype(np.float32),
+                          device="cuda"), w=t(2 * m, s), kind="matern32"),
+                      params=params, kind="matern32")
+
+
+def _post(url, payload):
+    from repro_torch.serve.cluster.replica import _http_json
+
+    status, body = _http_json(url, payload, timeout=60)
+    assert status == 200, body
+    return body
+
+
+@pytest.mark.cuda
+def test_cuda_http_predict_bitwise_equals_engine(tmp_path):
+    """The in-process HTTP front-end on the card: mean, var and samples of
+    ``/predict`` bitwise equal to ``engine.submit`` on the same rows (one
+    deterministic kernel launch in the same bucket each), and one forward
+    launch per dispatch."""
+    _cuda_or_skip()
+    from repro_torch.serve import MultiModelServer
+    from repro_torch.serve import cluster as tc
+
+    model = _card_servable()
+    server = MultiModelServer(buckets=(16, 64))
+    server.register("default", model, warmup=True)
+    httpd, _ = tc.start_http_server(tc.ServeFrontend(server, device="cuda"))
+    url = f"http://127.0.0.1:{httpd.port}"
+    xq = torch.tensor(np.random.default_rng(1).normal(size=(40, 3)).astype(
+        np.float32), device="cuda")
+    try:
+        for rows in (1, 16, 40):
+            torch.cuda.synchronize()
+            tiled.reset_launch_counts()
+            body = _post(url + "/predict", {"x": xq[:rows].cpu().tolist(),
+                                            "samples": True})
+            torch.cuda.synchronize()
+            assert tiled.launch_counts()[tiled.KERNEL_NAME] == 1
+            want = server.engine.submit(xq[:rows], model=model)
+            for key in ("mean", "var", "samples"):
+                got = torch.tensor(np.float32(body[key]))
+                assert torch.equal(got, getattr(want, key).cpu()), (rows, key)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+@pytest.mark.cuda
+def test_cuda_spawned_worker_predicts_bitwise_like_parent(tmp_path):
+    """A worker process on the card serving a model this process published:
+    its ``/predict`` bitwise equal to this process's engine."""
+    _cuda_or_skip()
+    from repro_torch.serve import BucketedEngine
+    from repro_torch.serve import cluster as tc
+
+    model = _card_servable(seed=2)
+    store = str(tmp_path / "store")
+    tc.publish_servable(store, model)
+    engine = BucketedEngine(model, buckets=(16, 64))
+    xq = torch.tensor(np.random.default_rng(3).normal(size=(24, 3)).astype(
+        np.float32), device="cuda")
+    tiled.build_kernels()
+    sup = tc.ReplicaSupervisor(store, num_replicas=1, buckets=(16, 64),
+                               device="cuda")
+    try:
+        (url,) = sup.start(timeout_s=300)
+        body = _post(url + "/predict", {"x": xq.cpu().tolist()})
+        want = engine.submit(xq)
+        assert body["version"] == "v0000001"
+        for key in ("mean", "var"):
+            got = torch.tensor(np.float32(body[key]))
+            assert torch.equal(got, getattr(want, key).cpu()), key
+    finally:
+        sup.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_fetch_servable_after_admin_swap(tmp_path):
+    """``/admin/swap`` on a card replica fetches the new version onto the
+    card; ``fetch_servable(device="cuda")`` returns the published tensors
+    on the card, and the swapped replica predicts as an engine on them."""
+    _cuda_or_skip()
+    from repro_torch.serve import BucketedEngine, MultiModelServer
+    from repro_torch.serve import cluster as tc
+
+    store = str(tmp_path / "store")
+    v1_model, v2_model = _card_servable(seed=4), _card_servable(seed=5)
+    tc.publish_servable(store, v1_model)
+    server = MultiModelServer(buckets=(16, 64))
+    frontend = tc.ServeFrontend(server, store_dir=store, device="cuda")
+    poller = tc.ArtifactPoller(store, server, interval_s=60.0, device="cuda")
+    assert poller.poll_once()
+    httpd, _ = tc.start_http_server(frontend)
+    url = f"http://127.0.0.1:{httpd.port}"
+    try:
+        v2 = tc.publish_servable(store, v2_model)
+        body = _post(url + "/admin/swap", {})
+        assert body == {"swapped": True, "version": v2, "model": "default"}
+        served = server.get("default")
+        assert served.x.device.type == "cuda"
+        fetched, version, _ = tc.fetch_servable(store, device="cuda")
+        assert version == v2 and fetched.correction.device.type == "cuda"
+        for a, b in ((fetched.x, v2_model.x),
+                     (fetched.correction, v2_model.correction),
+                     (fetched.rff.w, v2_model.rff.w)):
+            assert torch.equal(a, b)
+        xq = v2_model.x[:10] + 0.1
+        body = _post(url + "/predict", {"x": xq.cpu().tolist()})
+        want = BucketedEngine(fetched, buckets=(16, 64)).submit(xq)
+        assert torch.equal(torch.tensor(np.float32(body["mean"])),
+                           want.mean.cpu())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()

@@ -801,8 +801,13 @@ def test_serve_cli_modes_match_reference(cli_fit, capsys, flag):
 
 
 def test_serve_cli_refuses_http():
-    with pytest.raises(SystemExit, match="HTTP/cluster"):
-        tserve.main(["--device", "cpu", "--http", "127.0.0.1:0"])
+    """``--http`` serves since the HTTP/cluster slice; what it still refuses
+    is a configuration it cannot run: several replicas without the store
+    that hands them the model."""
+    with pytest.raises(SystemExit, match="needs --artifact-store"):
+        tserve.main(["--device", "cpu", "--max-n", "200", "--train-steps",
+                     "1", "--num-probes", "4", "--http", "127.0.0.1:0",
+                     "--replicas", "2"])
 
 
 def test_serve_cli_compat_dispatch(capsys):

@@ -135,6 +135,29 @@ Phases, each printing JSON lines:
    then the refine into the replica, its forward launches =
    ``RefreshReport.mvms``.
 
+12. distributed (since the distributed slice), on meshes of virtual
+   shards of one card (``make_mesh(..., devices=[cuda:0] * P)``: every
+   rotation is a device-to-device copy on the mesh's copy stream, as on a
+   multi-card host), gp-iterative widths (64 probes, 1000 RFF pairs): (a)
+   ``ring_h_mvm`` at full pol over (5, 2) ("data", "model") = 10 shards
+   of 1215 rows against the one-launch ``h_mvm``, all four kernels, 100
+   forward launches a ring MVM, both timed; over the real cards too when
+   there is more than one; (b) 3 ``make_gp_outer_step`` steps (10 epochs,
+   Matérn-3/2) on that mesh and on a (1, 1) mesh: hyperparameters within
+   ``TOL_TRAIN_VS_CPU``, res_z falling, (10 + 2) P^2 forward and P + 2P(P
+   - 1) backward launches a step, seconds and peak memory; then 3 steps
+   on 600 rows, card against CPU, held on the Adam moments; (c)
+   ``distributed_ap_sweeps`` at pol (block 405, ``[y | 64 probes]``,
+   omega 0.3, 20 iterations, then 20 warm): the tracked residual against
+   b - H v through the one-launch MVM, the relative residual falling,
+   21 P^2 launches a call; (d) full 3droad (353 000 padded rows) over
+   (2, 2, 2) ("pod", "data", "model"): one ring MVM against the one
+   launch, one 3-epoch step (seconds, peak memory, launches); (e)
+   ``fit_batch(mesh=...)`` over 2 lane positions, 4 CG lanes at full pol,
+   against the unsharded run (iterations equal step for step, hypers
+   within ``TOL_LANE_VS_SINGLE``), then the batch CLI with
+   ``--shard-lanes`` over the cards it finds.
+
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
 line, when there is no CUDA device, when run outside the repository, or when
@@ -2203,6 +2226,519 @@ def phase_lanes(torch, tiled) -> list:
     return path_launches
 
 
+# -- phase 12: the distributed GP path on virtual shards -------------------
+
+# (5, 2) ("data", "model") over 10 virtual cuda:0 shards: 1215 pol rows
+# each; (2, 2, 2) ("pod", "data", "model") over 8: 44 125 rows of padded
+# 3droad each.
+DIST_POL_MESH = ((5, 2), ("data", "model"))
+DIST_3DROAD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+# The ring against the one-launch MVM: both run the forward kernel (3xTF32
+# products) on the same entries; only the order of the sums differs (P
+# tiles, each with its own column split plan), so the two are held to this
+# relative error of the largest entry, the kernel-vs-plain bound's order.
+TOL_RING_VS_ONE = 2e-5
+# Distributed steps held against each other (P = 10 vs P = 1, card vs
+# CPU). Summation order alone puts the gradients' components about 2.4e-5
+# of the largest apart in absolute terms, all alike (CPU, P = 10 vs P = 1
+# at 600 pol rows), so the Adam first moments are held per component at
+# TOL_MU_RTOL of themselves plus TOL_MU_ATOL of the largest. Adam's update
+# is normalised per component, so a near-zero gradient's rounding moves
+# its hyperparameter: those sound runs end 1.0e-3 of the largest apart
+# after 3 steps, and the small card-vs-CPU run is held to 3x that
+# (tests/test_torch_distributed.py pins both).
+TOL_MU_ATOL, TOL_MU_RTOL = 5e-5, 1e-2
+TOL_HYPERS_SMALL_STEPS = 3e-3
+DIST_STEPS = 3
+DIST_EPOCHS = 10
+DIST_AP = dict(block_size=405, num_iters=20, omega=0.3)  # 3 blocks a shard
+DIST_LANE_DEVICES = 2
+BATCH_SHARD_OUT = ROOT / "build" / "chip_smoke_batch_shard"
+# The forward kernel at the distributed path's shapes (label, n, m, d, s):
+# a pol ring tile, a 3droad ring tile, and an AP slab of the pol ring
+# (K(x_loc, x_blk) @ delta).
+RING_TILE_SHAPES = (("ring_tile_pol", 1215, 1215, 26, 65),
+                    ("ring_tile_3droad", 44125, 44125, 3, 65),
+                    ("ap_ring_slab_pol", 1215, 405, 26, 65))
+# The backward kernel at the ring's tiles (label, n, m, d, s): the
+# gradient of a step takes du and dw of every tile whose operands differ
+# and the fused call (s' = 2s) on each position's own tile.
+RING_BWD_SHAPES = (("ring_tile_pol_bwd", 1215, 1215, 26, 65),
+                   ("ring_tile_3droad_bwd", 44125, 44125, 3, 65))
+
+
+def _virtual_mesh(torch, shape, axes):
+    """``shape`` positions, every one on cuda:0."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes,
+                     devices=[torch.device("cuda", 0)] * math.prod(shape))
+
+
+def _counted(torch, tiled, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after (synchronised): (result, seconds, (launches, second passes))."""
+    torch.cuda.synchronize()
+    tiled.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, (tiled.launch_counts(), tiled.second_pass_counts())
+
+
+def _ring_vs_one(torch, tiled, x, v, params, mesh, kind, timed=True) -> dict:
+    """``ring_h_mvm`` over ``mesh`` (counted) against the one-launch
+    ``h_mvm``, and both timed (CUDA events)."""
+    from repro_torch.distributed.ring import ring_h_mvm
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.kernels.ops import h_mvm
+
+    xs, vs = shard_rows(x, mesh), shard_rows(v, mesh)
+    ring, seconds, counts = _counted(
+        torch, tiled, lambda: ring_h_mvm(xs, vs, params, mesh, kind=kind))
+    one = h_mvm(x, v, params, kind=kind)
+    err = ((ring.gather(x.device) - one).abs().max()
+           / one.abs().max()).item()
+    rec = {"kind": kind, "positions": mesh.size, "rows_per_shard":
+           x.shape[0] // mesh.size, "launches": counts[0],
+           "first_call_s": seconds, "rel_err_vs_one_launch": err}
+    if not timed:  # large shapes: one call of each, host clock
+        _, rec["one_launch_s"], _ = _counted(
+            torch, tiled, lambda: h_mvm(x, v, params, kind=kind))
+    else:
+        rec["ring_ms"] = time_ms(
+            lambda: ring_h_mvm(xs, vs, params, mesh, kind=kind), 5)
+        rec["one_launch_ms"] = time_ms(lambda: h_mvm(x, v, params, kind=kind),
+                                       5)
+    return rec, counts
+
+
+def _ring_tiles(torch, tiled, registry) -> dict:
+    """Both kernels (Matérn-3/2, the steps' kind) at the distributed path's
+    shapes against their plain versions, timed with their bound, plain and
+    library times: the forward kernel at RING_TILE_SHAPES, the backward
+    kernel at RING_BWD_SHAPES in both of the ring's calls (du of a tile
+    whose operands differ; the fused call of a position's own tile, s' =
+    2s). u and w are distinct rows, as on a ring step; the 3droad tiles
+    have r2 ~ 6 on average, as the large-dataset shapes of phase 2."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reg = registry.get_kernel("matern32")
+    out, bad = {"fwd": {}, "bwd": {}}, []
+
+    def inputs(n, m, d, s):
+        scale = math.sqrt(3.0 / d) if d < 10 else 1.0
+        return (scale * torch.randn((n, d), generator=gen, device="cuda"),
+                scale * torch.randn((m, d), generator=gen, device="cuda"),
+                torch.randn((n, s), generator=gen, device="cuda"),
+                torch.randn((m, s), generator=gen, device="cuda"))
+
+    def check(which, label, call, plain, library, rec, tol):
+        got, ref = call(), plain()
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        big = rec["n"] > 10000
+        rec.update({"phase": "distributed", "run": f"tiles_{which}",
+                    "shape": label, "kind": "matern32", "max_abs_err": err,
+                    "rel_err": rel, "tol_rel": tol,
+                    "ms": time_ms(call, 5 if big else 50),
+                    "plain_ms": time_ms(plain, 1 if big else 3),
+                    "library_ms": time_ms(library, 1 if big else 5)})
+        emit(rec)
+        out[which][label] = {k: rec[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_unit",
+            "splits", "rel_err", "max_abs_err")}
+        if not rel <= tol:
+            bad.append((which, label, rel))
+
+    for label, n, m, d, s in RING_TILE_SHAPES:
+        u, w, _, v = inputs(n, m, d, s)
+        check("fwd", label, lambda: tiled.kernel_mvm_cuda(u, w, v, "matern32"),
+              lambda: tiled.kernel_mvm_plain(u, w, v, "matern32"),
+              lambda: reg.kappa_from_r2(torch.cdist(u, w) ** 2) @ v,
+              {"n": n, "m": m, "d": d, "s": s,
+               "splits": tiled.split_plan(n, m, s, sms), **bound(n, m, d, s)},
+              TOL_VS_PLAIN)
+        del u, w, v
+
+    def bwd_library(a, b, c, e):
+        dt = (c @ e.T) * reg.dkappa_dr2(torch.cdist(a, b) ** 2)
+        return 2.0 * (dt.sum(1, keepdim=True) * a - dt @ b)
+
+    for label, n, m, d, s in RING_BWD_SHAPES:
+        u, w, g, v = inputs(n, m, d, s)
+        splits = tiled.bwd_split_plan(n, m, sms)
+        # du of a tile K(x_loc, x_rot): u, w, g, v read once, du written
+        check("bwd", label,
+              lambda: tiled.kernel_mvm_bwd_cuda(u, w, g, v, "matern32"),
+              lambda: tiled.kernel_mvm_bwd_plain(u, w, g, v, "matern32"),
+              lambda: bwd_library(u, w, g, v),
+              {"n": n, "m": m, "d": d, "s": s, "splits": splits,
+               "launches_per_call": len(tiled.bwd_s_chunks(d, s)),
+               **bound_bwd(n, m, d, s, 4 * (2 * n * d + m * d + n * s
+                                            + m * s))},
+              TOL_BWD_VS_PLAIN)
+        # the own tile K(x_loc, x_loc): one call on (u, u, [g | v], [v | g])
+        v = v[:n]
+        gv, vg = torch.cat([g, v], dim=1), torch.cat([v, g], dim=1)
+        check("bwd", f"{label}_fused",
+              lambda: tiled.kernel_mvm_bwd_fused_cuda(u, g, v, "matern32"),
+              lambda: tiled.kernel_mvm_bwd_plain(u, u, gv, vg, "matern32"),
+              lambda: bwd_library(u, u, gv, vg),
+              {"n": n, "m": n, "d": d, "s": 2 * s,
+               "splits": tiled.bwd_split_plan(n, n, sms),
+               "launches_per_call": len(tiled.bwd_s_chunks(d, s, fused=True)),
+               **bound_bwd(n, n, d, 2 * s, 4 * (2 * n * d + 2 * n * s))},
+              TOL_BWD_VS_PLAIN)
+        del u, w, g, v, gv, vg
+    if bad:
+        raise AssertionError(f"ring tiles vs plain: {bad}")
+    return out
+
+
+def _gp_steps(torch, tiled, mesh, x, y, rff, w_eps, params, steps, epochs,
+              probes) -> dict:
+    """``steps`` distributed outer steps from a fresh state on ``mesh``,
+    counted together; seconds per step, res_z, peak memory."""
+    from repro_torch.distributed.gp_step import GPStepState, make_gp_outer_step
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.train.adam import adam_init
+
+    dev = x.device
+    step = make_gp_outer_step(mesh, probes, solver_epochs=epochs)
+    state = GPStepState(params, adam_init(params), shard_rows(
+        torch.zeros((x.shape[0], 1 + probes), device=dev), mesh),
+        torch.zeros((), device=dev), torch.zeros((), device=dev))
+    xs, ys, ws = (shard_rows(t, mesh) for t in (x, y, w_eps))
+    step_s, res_z, mu = [], [], []
+
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state = step(state, xs, ys, rff, ws)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            res_z.append(float(state.res_z))
+            mu.append(torch.cat([m.reshape(-1) for m in state.adam.mu.leaves])
+                      .cpu())
+        return state
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        _, _, counts = _counted(torch, tiled, run)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    else:
+        run()
+        counts, peak = None, None
+    return {"state": state, "step_s": step_s, "res_z": res_z, "mu": mu,
+            "res_y": float(state.res_y), "counts": counts,
+            "peak_mib": peak, "hypers": state.params.flat().cpu()}
+
+
+def _moments_agree(got: list, want: list) -> tuple:
+    """The Adam first moments of two runs, step by step, per component:
+    |got - want| <= TOL_MU_ATOL * max|want| + TOL_MU_RTOL * |want|.
+    Returns (all agree, per step the largest gap over its allowance)."""
+    gaps = []
+    for a, b in zip(got, want):
+        allow = TOL_MU_ATOL * b.abs().max() + TOL_MU_RTOL * b.abs()
+        gaps.append(float(((a - b).abs() / allow).max()))
+    return all(g <= 1.0 for g in gaps), gaps
+
+
+def _expected_step_launches(tiled, positions, steps, epochs, d, cols) -> dict:
+    """Per distributed step: (epochs + 2) ring sweeps of P^2 forward tiles;
+    the gradient's backward once per position for its own tile (the fused
+    call, per column chunk) and twice per other tile (du, dw)."""
+    fused = len(tiled.bwd_s_chunks(d, cols, fused=True))
+    plain = len(tiled.bwd_s_chunks(d, cols))
+    return {tiled.KERNEL_NAME: steps * (epochs + 2) * positions ** 2,
+            tiled.BWD_KERNEL_NAME: steps * (positions * fused + 2 * positions
+                                            * (positions - 1) * plain)}
+
+
+def _check_counts(label, counts, expected, problems) -> None:
+    for k, want in expected.items():
+        if counts[0][k] != want:
+            problems.append(f"{label}: {k} launches {counts[0][k]} != {want}")
+
+
+def phase_distributed(torch, tiled, registry) -> tuple:
+    """(a) the ring at full pol over 10 virtual shards against the
+    one-launch MVM, all four kernels; (b) 3 distributed GP steps at pol on
+    that mesh against a (1, 1) mesh, then small card vs CPU; (c)
+    distributed AP at pol; (d) full 3droad over 8 shards: one ring MVM and
+    one 3-epoch step; (e) lane-sharded fit_batch and ``--shard-lanes``;
+    then both kernels at the path's tile shapes against their plain
+    versions. Each counted run has its launch counts set to 0 just before
+    and read just after. Returns those counts, the forward kernel's
+    records and the backward kernel's tile records."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
+    from repro_torch.distributed.ap import distributed_ap_sweeps
+    from repro_torch.distributed.ring import global_col_norms
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.gp.rff import init_rff
+    from repro_torch.kernels.ops import h_mvm
+    from repro_torch.launch.mesh import make_mesh
+
+    path, problems = [], []
+    cards = torch.cuda.device_count()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    pol = load_dataset("pol", max_n=0, device="cuda")
+    x, y = pol.x_train, pol.y_train
+    n, d = x.shape
+    probes = 64
+    mesh = _virtual_mesh(torch, *DIST_POL_MESH)
+    P = mesh.size
+    emit({"phase": "distributed", "cards": cards, "mesh": mesh.shape,
+          "positions": P, "n_train": n, "rows_per_shard": n // P})
+
+    # (a) the ring MVM at the CG shape
+    v = torch.randn((n, probes + 1), generator=gen, device="cuda")
+    ring_recs = []
+    for kind in ("rbf", "matern12", "matern32", "matern52"):
+        params = HyperParams.create(d, lengthscale=4.0, noise=0.5,
+                                    kernel=kind, device="cuda")
+        rec, counts = _ring_vs_one(torch, tiled, x, v, params, mesh, kind)
+        path.append(counts)
+        ring_recs.append(rec)
+        emit({"phase": "distributed", "run": "a_ring_pol", **rec})
+        _check_counts(f"ring {kind}", counts, {tiled.KERNEL_NAME: P * P,
+                                               tiled.BWD_KERNEL_NAME: 0},
+                      problems)
+        if not rec["rel_err_vs_one_launch"] <= TOL_RING_VS_ONE:
+            problems.append(f"ring {kind} vs one launch: "
+                            f"{rec['rel_err_vs_one_launch']}")
+    if cards > 1:
+        real = make_mesh((cards,), ("data",))
+        rows = n - n % cards
+        params = HyperParams.create(d, lengthscale=4.0, noise=0.5,
+                                    device="cuda")
+        rec, counts = _ring_vs_one(torch, tiled, x[:rows], v[:rows], params,
+                                   real, "matern32")
+        path.append(counts)
+        emit({"phase": "distributed", "run": "a_ring_real_cards", **rec})
+        if not rec["rel_err_vs_one_launch"] <= TOL_RING_VS_ONE:
+            problems.append(f"ring over {cards} cards: "
+                            f"{rec['rel_err_vs_one_launch']}")
+
+    # (b) distributed GP steps, 10 epochs, P = 10 against P = 1
+    rff = init_rff(gen, 1000, d, probes, kind="matern32", device="cuda")
+    w_eps = torch.randn((n, probes), generator=gen, device="cuda")
+    runs = {}
+    for label, m in (("p10", mesh), ("p1", _virtual_mesh(
+            torch, (1, 1), ("data", "model")))):
+        params = HyperParams.create(d, lengthscale=4.0, device="cuda")
+        runs[label] = _gp_steps(torch, tiled, m, x, y, rff, w_eps, params,
+                                DIST_STEPS, DIST_EPOCHS, probes)
+        path.append(runs[label]["counts"])
+        expected = _expected_step_launches(tiled, m.size, DIST_STEPS,
+                                           DIST_EPOCHS, d, probes + 1)
+        _check_counts(f"gp_step {label}", runs[label]["counts"], expected,
+                      problems)
+        r = runs[label]
+        emit({"phase": "distributed", "run": f"b_gp_step_pol_{label}",
+              "positions": m.size, "epochs": DIST_EPOCHS,
+              "step_s": r["step_s"], "res_z": r["res_z"], "res_y": r["res_y"],
+              "peak_mib": r["peak_mib"], "launches": r["counts"][0],
+              "expected_launches": expected,
+              "hypers": r["hypers"].tolist()})
+    h10, h1 = runs["p10"]["hypers"], runs["p1"]["hypers"]
+    err = float((h10 - h1).abs().max() / h1.abs().max())
+    mu_ok, mu_gap = _moments_agree(runs["p10"]["mu"], runs["p1"]["mu"])
+    emit({"phase": "distributed", "run": "b_p10_vs_p1", "hypers_rel_err": err,
+          "tol_rel": TOL_TRAIN_VS_CPU, "adam_mu_gap": mu_gap,
+          "mu_atol_of_largest": TOL_MU_ATOL, "mu_rtol": TOL_MU_RTOL,
+          "adam_mu_ok": mu_ok})
+    if not err <= TOL_TRAIN_VS_CPU:
+        problems.append(f"gp_step P=10 vs P=1 hypers {err}")
+    if not mu_ok:
+        problems.append(f"gp_step P=10 vs P=1 Adam moments {mu_gap}")
+    for label, r in runs.items():
+        if not r["res_z"][-1] < r["res_z"][0]:
+            problems.append(f"gp_step {label}: res_z {r['res_z']} not falling")
+    small = {}
+    for dev in ("cpu", "cuda"):
+        ds = load_dataset("pol", max_n=667, device=dev)
+        g = torch.Generator().manual_seed(5)
+        rff_s = init_rff(g, 256, d, 16, kind="matern32")
+        w_s = torch.randn((ds.x_train.shape[0], 16), generator=g)
+        m = (_virtual_mesh(torch, *DIST_POL_MESH) if dev == "cuda" else
+             make_mesh(*DIST_POL_MESH, devices=["cpu"] * P))
+        small[dev] = _gp_steps(
+            torch, tiled, m, ds.x_train, ds.y_train,
+            rff_s._replace(z=rff_s.z.to(dev), u=rff_s.u.to(dev),
+                           w=rff_s.w.to(dev)), w_s.to(dev),
+            HyperParams.create(d, lengthscale=4.0, device=dev), DIST_STEPS,
+            8, 16)
+    # The moments per component and the hyperparameters at a limit from
+    # sound runs: see TOL_MU_ATOL.
+    mu_ok, mu_gap = _moments_agree(small["cuda"]["mu"], small["cpu"]["mu"])
+    h_err = float((small["cuda"]["hypers"] - small["cpu"]["hypers"]).abs()
+                  .max() / small["cpu"]["hypers"].abs().max())
+    vc, vp = (small[k]["state"].carry_v.gather("cpu") for k in ("cuda", "cpu"))
+    emit({"phase": "distributed", "run": "b_small_card_vs_cpu",
+          "n_train": int(ds.x_train.shape[0]), "adam_mu_gap": mu_gap,
+          "mu_atol_of_largest": TOL_MU_ATOL, "mu_rtol": TOL_MU_RTOL,
+          "adam_mu_ok": mu_ok, "hypers_rel_err": h_err,
+          "tol_hypers_rel": TOL_HYPERS_SMALL_STEPS,
+          "carry_v_rel_err": float((vc - vp).norm() / vp.norm())})
+    if not mu_ok:
+        problems.append(f"gp_step small card vs CPU: Adam moments {mu_gap}")
+    if not h_err <= TOL_HYPERS_SMALL_STEPS:
+        problems.append(f"gp_step small card vs CPU: hypers {h_err}")
+
+    # (c) distributed AP at pol: [y | 64 probes], 20 iterations, then 20 warm
+    params = HyperParams.create(d, lengthscale=4.0, noise=0.5, device="cuda")
+    rhs = torch.cat([y[:, None], torch.randn((n, probes), generator=gen,
+                                             device="cuda")], dim=1)
+    iters = DIST_AP["num_iters"]
+    (v1, r1), s1, c1 = _counted(torch, tiled, lambda: distributed_ap_sweeps(
+        x, rhs, torch.zeros_like(rhs), params, mesh, **DIST_AP))
+    (v2, r2), s2, c2 = _counted(torch, tiled, lambda: distributed_ap_sweeps(
+        x, rhs, v1, params, mesh, **DIST_AP))
+    path += [c1, c2]
+    for label, c in (("cold", c1), ("warm", c2)):
+        _check_counts(f"ap {label}", c, {tiled.KERNEL_NAME: P * P * (1 + iters),
+                                         tiled.BWD_KERNEL_NAME: 0}, problems)
+    r_true = rhs - h_mvm(x, v1.gather("cuda"), params)
+    track = (r1.gather("cuda") - r_true).abs()
+    track_ok = bool(torch.all(track <= 1e-3 + 1e-3 * r_true.abs()))
+
+    def relres(r):
+        return float((global_col_norms(r) / rhs.norm(dim=0)).max())
+
+    rel1, rel2 = relres(r1), relres(r2)
+    emit({"phase": "distributed", "run": "c_ap_pol", "positions": P,
+          **DIST_AP, "cold_s": s1, "warm_s": s2, "launches_cold": c1[0],
+          "launches_warm": c2[0], "relres_cold": rel1, "relres_warm": rel2,
+          "tracked_vs_true_max_abs": track.max().item(),
+          "tracked_ok": track_ok})
+    if not track_ok:
+        problems.append(f"ap tracked residual vs true {track.max().item()}")
+    if not rel2 < rel1 < 1.0:
+        problems.append(f"ap relative residual {rel1} -> {rel2}")
+
+    # (d) full 3droad over 8 shards: one ring MVM, one 3-epoch step
+    road = load_dataset("3droad", max_n=0, device="cuda")
+    xr, yr, n_real = pad_to_block_multiple(road.x_train, road.y_train, 1000)
+    mesh3 = _virtual_mesh(torch, *DIST_3DROAD_MESH)
+    vr = torch.randn((xr.shape[0], probes + 1), generator=gen, device="cuda")
+    params = HyperParams.create(xr.shape[1], device="cuda")
+    rec, counts = _ring_vs_one(torch, tiled, xr, vr, params, mesh3,
+                               "matern32", timed=False)
+    path.append(counts)
+    _check_counts("ring 3droad", counts, {tiled.KERNEL_NAME: mesh3.size ** 2,
+                                          tiled.BWD_KERNEL_NAME: 0}, problems)
+    if not rec["rel_err_vs_one_launch"] <= TOL_RING_VS_ONE:
+        problems.append(f"ring 3droad vs one launch: "
+                        f"{rec['rel_err_vs_one_launch']}")
+    del vr
+    rff3 = init_rff(gen, 1000, xr.shape[1], probes, kind="matern32",
+                    device="cuda")
+    w3 = torch.randn((xr.shape[0], probes), generator=gen, device="cuda")
+    big = _gp_steps(torch, tiled, mesh3, xr, yr, rff3, w3, params, 1, 3,
+                    probes)
+    path.append(big["counts"])
+    expected = _expected_step_launches(tiled, mesh3.size, 1, 3, xr.shape[1],
+                                       probes + 1)
+    _check_counts("gp_step 3droad", big["counts"], expected, problems)
+    emit({"phase": "distributed", "run": "d_3droad", "n_train": n_real,
+          "n_padded": int(xr.shape[0]), "mesh": mesh3.shape, **rec,
+          "step_s": big["step_s"], "step_res_z": big["res_z"],
+          "step_peak_mib": big["peak_mib"], "step_launches": big["counts"][0],
+          "step_expected_launches": expected})
+    if not np.isfinite(big["res_z"]).all():
+        problems.append(f"gp_step 3droad res_z {big['res_z']}")
+    del road, xr, yr, w3
+
+    # (e) lanes sharded over a lane mesh
+    path_e, found = _sharded_lanes(torch, tiled, x, y)
+    path += path_e
+    problems += found
+    try:
+        tiles = _ring_tiles(torch, tiled, registry)
+    except AssertionError as e:
+        problems.append(str(e))
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return path, {"ring_pol": ring_recs, "tiles": tiles["fwd"]}, tiles["bwd"]
+
+
+def _sharded_lanes(torch, tiled, x, y) -> tuple:
+    """fit_batch over ``DIST_LANE_DEVICES`` virtual cuda:0 lane positions,
+    4 CG lanes at full pol (Matérn-3/2 x 2 seeds x tolerances 0.01 / 0.05,
+    phase 8 (f)'s config), against the unsharded fit_batch; then the batch
+    CLI with ``--shard-lanes`` over the cards it finds."""
+    import numpy as np
+
+    from repro_torch.core.driver import fit_batch
+    from repro_torch.launch import batch
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.solvers import stack_numerics
+
+    problems = []
+    args = _batch_args(dataset="pol", max_n=0, kernels="matern32", seeds=2,
+                       tolerances="0.01,0.05", steps=10, device="cuda",
+                       shard_lanes=True, out=str(BATCH_SHARD_OUT))
+    cells = batch.make_cells(batch.sweep_archs(["matern32"], args.smoke),
+                             list(range(args.seeds)), args)
+    (cfg, members), = batch.group_cells(cells, args).items()
+    nums = stack_numerics([batch.cell_numerics(c, args) for c in members])
+    seeds = [c.seed for c in members]
+    mesh = make_lane_mesh(devices=[torch.device("cuda", 0)] * DIST_LANE_DEVICES)
+    sharded, seconds, counts = _counted(
+        torch, tiled, lambda: fit_batch(x, y, cfg, seeds, numerics=nums,
+                                        mesh=mesh))
+    per = len(members) // DIST_LANE_DEVICES
+    expected = dict.fromkeys(tiled.LAUNCHES, 0)
+    for g in range(DIST_LANE_DEVICES):
+        part = expected_lane_launches(tiled, cfg, sharded[g * per:(g + 1) * per],
+                                      x.shape[1])
+        for k in expected:
+            expected[k] += part[k]
+    _check_counts("sharded lanes", counts, expected, problems)
+    t0 = time.perf_counter()
+    plain = fit_batch(x, y, cfg, seeds, numerics=nums)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    lanes = []
+    for c, a, b in zip(members, plain, sharded):
+        differ = int(np.sum(a.history["iters"] != b.history["iters"]))
+        err = float(np.abs(a.history["hypers"] - b.history["hypers"]).max()
+                    / np.abs(a.history["hypers"]).max())
+        lanes.append({"seed": c.seed, "tag": c.tag, "steps_iters_differ":
+                      differ, "hypers_rel_err": err,
+                      "iters": b.history["iters"].tolist()})
+        if differ or not err <= TOL_LANE_VS_SINGLE:
+            problems.append(f"sharded lane s{c.seed}{c.tag}: {differ} steps "
+                            f"differ, hypers {err}")
+    emit({"phase": "distributed", "run": "e_sharded_lanes",
+          "lane_devices": DIST_LANE_DEVICES, "lanes": len(members),
+          "sharded_s": seconds, "unsharded_s": plain_s,
+          "launches": counts[0], "expected_launches": expected,
+          "lanes_vs_unsharded": lanes})
+    shutil.rmtree(args.out, ignore_errors=True)
+    args.steps = 3
+    cli, cli_s, cli_counts = _counted(
+        torch, tiled, lambda: batch.main(_argv(args)))
+    status = json.loads((Path(args.out) / "_sweep_status.json").read_text())
+    emit({"phase": "distributed", "run": "e_batch_shard_lanes",
+          "argv": _argv(args), "rc": cli, "seconds": cli_s,
+          "launches": cli_counts[0], "status": status})
+    cards = torch.cuda.device_count()
+    sharded = int(len(members) % cards == 0)
+    if cli != 0 or status["sharded_groups"] != sharded or \
+            status["shard_devices"] != cards * sharded:
+        problems.append(f"batch --shard-lanes: rc {cli}, status {status}")
+    return [counts, cli_counts], problems
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -2362,6 +2898,16 @@ def main() -> int:
         traceback.print_exc()
         failures.append("lanes")
     phase_s["lanes"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    dist_recs = dist_bwd = {}
+    try:
+        launches, dist_recs, dist_bwd = phase_distributed(torch, tiled,
+                                                          registry)
+        path_launches.extend(launches)
+    except Exception:
+        traceback.print_exc()
+        failures.append("distributed")
+    phase_s["distributed"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)
@@ -2372,13 +2918,15 @@ def main() -> int:
                       total(tiled.KERNEL_NAME), fwd_entry,
                       second_pass_calls=total(tiled.KERNEL_NAME, 1),
                       lanes=lane_kernels.get(tiled.KERNEL_NAME),
-                      refresh_shapes=refresh_shapes),
+                      refresh_shapes=refresh_shapes,
+                      distributed=dist_recs),
         _kernel_entry(tiled.BWD_KERNEL_NAME,
                       "src/repro_torch/csrc/kernel_mvm_bwd.cu",
                       "src/repro/kernels/tiled.py:131",
                       total(tiled.BWD_KERNEL_NAME), bwd_entry,
                       second_pass_calls=total(tiled.BWD_KERNEL_NAME, 1),
-                      lanes=lane_kernels.get(tiled.BWD_KERNEL_NAME)),
+                      lanes=lane_kernels.get(tiled.BWD_KERNEL_NAME),
+                      distributed={"tiles": dist_bwd}),
     ]
     emit({"phase": "timing", "phase_s": phase_s,
           "wall_s": time.perf_counter() - t_start})

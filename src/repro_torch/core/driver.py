@@ -118,7 +118,7 @@ def _round_size(step: int, num_steps: int, steps_per_round: int,
 
 def _append_round(history: dict, metrics: dict, dt: float, k: int,
                   lane: Optional[int] = None, event_log=None,
-                  solver: str = "") -> float:
+                  solver: str = "", lane_tag: Optional[int] = None) -> float:
     """Append one round's host metrics (leading axis k steps, then the lane
     axis when ``lane`` is given) to the per-step history; returns the
     round's estimated solve time. The solve vs gradient/Adam split is the
@@ -131,7 +131,9 @@ def _append_round(history: dict, metrics: dict, dt: float, k: int,
     step emits the reference's ``solve_step`` event (``step, solver, lane,
     res_y, res_z, iters, epochs, step_time_s``, and the step's finite ring
     rows as ``res_history`` when the ring is on), and under a budget policy
-    a ``budget_decision`` event with the ``budget_*`` columns."""
+    a ``budget_decision`` event with the ``budget_*`` columns; their
+    ``lane`` is ``lane_tag`` when given (a group's lane in the whole
+    batch), else ``lane``."""
     from repro_torch.solvers.base import unroll_history
 
     def col(name, dtype=float):
@@ -164,8 +166,9 @@ def _append_round(history: dict, metrics: dict, dt: float, k: int,
     for name, vals in budget_cols.items():
         history.setdefault(name, []).extend(vals)
     if event_log is not None:
-        _emit_round(event_log, metrics, k, lane, solver, dt, rings,
-                    budget_cols, col)
+        _emit_round(event_log, metrics, k,
+                    lane if lane_tag is None else lane_tag, solver, dt,
+                    rings, budget_cols, col)
     return float(np.sum(dt / k * frac))
 
 
@@ -341,8 +344,10 @@ def fit_batch(
     verbose: bool = False,
     steps_per_round: int = 0,
     numerics: Optional[SolverNumerics] = None,
+    mesh=None,
     event_log=None,
     budget_policy: Optional[BudgetPolicy] = None,
+    batch_idx: Optional[Sequence] = None,
 ) -> list:
     """Fit B scenario lanes sharing one dataset and static config in one
     lane-stacked run: every solver iteration is one launch of each kernel
@@ -355,7 +360,24 @@ def fit_batch(
     carried across by :mod:`repro_torch.interop`), and optionally in their
     numeric solver settings (``numerics`` with (B,) leaves: a tolerance x
     budget x lr grid). Lane l advances as ``fit`` with lane l's generator,
-    state and numerics would (the solvers' freeze mask).
+    state and numerics would (the solvers' freeze mask). ``batch_idx``,
+    when given, hands over SGD's block schedules: one (B, iters) array per
+    step run, in place of draws from the generators.
+
+    ``mesh`` (a 1-D lane mesh, see
+    :func:`repro_torch.launch.mesh.make_lane_mesh`) shards the lanes over
+    its positions: B must be a multiple of the mesh size, each position
+    runs a contiguous group of B / size lanes (its states, numerics,
+    policy, schedules and a copy of x and y on its device) through the
+    same lane-stacked rounds, and the histories merge in lane order. The
+    freeze mask keeps every lane's trajectory its own; a group's column
+    split plans round unlike the whole batch's, so per-lane results agree
+    with the unsharded run to fp32 accumulation order. The groups run in
+    turn: each round issues one group after another, and every group's
+    round reads the host (inside CG and at its end) before the next
+    starts, so the cards do not overlap, and k cards take about as long
+    as one card running all k groups. Sharding spreads the lanes' memory
+    over the cards; it gives no multi-card speed-up yet.
 
     ``steps_per_round <= 0`` (default) runs all steps in one round. No
     checkpoints; per-lane eval once at the end when ``x_test`` is given.
@@ -364,69 +386,123 @@ def fit_batch(
     ``budget_policy`` gives every lane the adaptive controller: scalar
     leaves are broadcast, (B,) leaves give each lane its own pool, floor or
     ceiling. ``event_log`` receives lane-tagged ``solve_step`` events
-    (see :func:`fit`). There is no ``mesh=`` (sharding lanes over cards
-    waits for the distributed slice).
+    (see :func:`fit`).
     """
-    gens = _lane_generators(generators, x.device)
-    lanes = len(gens)
-    if states is None:
-        states = init_outer_state_lanes(cfg, x, gens, init_params=init_params)
-    if num_lanes(states) != lanes:
-        raise ValueError(f"{num_lanes(states)} lanes of states for "
-                         f"{lanes} generators")
+    lanes = len(generators)
     if numerics is not None:
         numerics = broadcast_numerics(numerics, lanes)
     policy = budget_policy
     if policy is not None:
         _require_history(cfg)
-        policy = broadcast_policy(
-            resolve_horizon(policy, cfg.num_steps), lanes).to(x.device)
+        policy = broadcast_policy(resolve_horizon(policy, cfg.num_steps),
+                                  lanes)
+    if states is not None and num_lanes(states) != lanes:
+        raise ValueError(f"{num_lanes(states)} lanes of states for "
+                         f"{lanes} generators")
+    if mesh is None:
+        devices = [x.device]
+    else:
+        devices = list(mesh.devices)
+        if lanes % len(devices) != 0:
+            raise ValueError(
+                f"lanes={lanes} must be a multiple of the lane-mesh device "
+                f"count {len(devices)} (pad the grid or drop --shard-lanes)")
+    groups = [_LaneGroup(g, lanes // len(devices), dev, x, y, cfg,
+                         generators, init_params, states, numerics, policy)
+              for g, dev in enumerate(devices)]
     histories = [_empty_history() for _ in range(lanes)]
     solver_times = [0.0] * lanes
     t0 = time.perf_counter()
-    step = states.step
+    step, done = groups[0].states.step, 0
     while step < cfg.num_steps:
         k = _round_size(step, cfg.num_steps, steps_per_round)
         ts = time.perf_counter()
-        if policy is None:
-            states, metrics = outer_scan(states, x, y, cfg, k, lanes=True,
-                                         numerics=numerics, generators=gens)
-        else:
-            (states, policy), metrics = outer_scan(
-                states, x, y, cfg, k, lanes=True, numerics=numerics,
-                budget=policy, generators=gens)
-        _sync(states.carry_v)
+        rounds = [grp.run(cfg, k, None if batch_idx is None
+                          else batch_idx[done:done + k]) for grp in groups]
         dt = time.perf_counter() - ts
-        metrics = _host_metrics(metrics)
-        for lane in range(lanes):
-            solver_times[lane] += _append_round(
-                histories[lane], metrics, dt / lanes, k, lane=lane,
-                event_log=event_log, solver=cfg.solver.name)
-        step = states.step
+        for grp, metrics in zip(groups, rounds):
+            for local in range(grp.size):
+                lane = grp.lo + local
+                solver_times[lane] += _append_round(
+                    histories[lane], metrics, dt / lanes, k, lane=local,
+                    event_log=event_log, solver=cfg.solver.name,
+                    lane_tag=lane)
+        step, done = groups[0].states.step, done + k
         if verbose:
             print(f"[fit_batch] step {step}/{cfg.num_steps} x {lanes} lanes "
                   f"({dt:.2f}s/{k} steps)", flush=True)
     wall = time.perf_counter() - t0
     results = []
-    for lane in range(lanes):
-        lane_state = unstack_state(states, lane)
-        hist = histories[lane]
-        if x_test is not None:
-            m = evaluate(x, lane_state, cfg, x_test, y_test,
-                         generator=gens[lane],
-                         numerics=None if numerics is None
-                         else lanes_mod.lane(numerics, lane))
-            hist["eval_step"].append(cfg.num_steps)
-            hist["eval_rmse"].append(m["rmse"])
-            hist["eval_llh"].append(m["llh"])
-            hist["eval_mvms"].append(m["mvms"])
-        hist = {k_: np.asarray(v) for k_, v in hist.items()}
-        results.append(FitResult(
-            state=lane_state, history=hist, wall_time_s=wall / lanes,
-            solver_time_s=solver_times[lane],
-            grad_time_s=float(np.sum(hist["step_time_s"]))
-            - solver_times[lane]))
+    for grp in groups:
+        for local in range(grp.size):
+            lane = grp.lo + local
+            lane_state = unstack_state(grp.states, local)
+            hist = histories[lane]
+            if x_test is not None:
+                m = evaluate(grp.x, lane_state, cfg, x_test.to(grp.device),
+                             y_test.to(grp.device),
+                             generator=grp.gens[local],
+                             numerics=None if grp.numerics is None
+                             else lanes_mod.lane(grp.numerics, local))
+                hist["eval_step"].append(cfg.num_steps)
+                hist["eval_rmse"].append(m["rmse"])
+                hist["eval_llh"].append(m["llh"])
+                hist["eval_mvms"].append(m["mvms"])
+            hist = {k_: np.asarray(v) for k_, v in hist.items()}
+            results.append(FitResult(
+                state=lane_state, history=hist, wall_time_s=wall / lanes,
+                solver_time_s=solver_times[lane],
+                grad_time_s=float(np.sum(hist["step_time_s"]))
+                - solver_times[lane]))
     return results
+
+
+class _LaneGroup:
+    """The contiguous lanes ``[lo, lo + size)`` of a ``fit_batch`` on one
+    device: their generators, lane-stacked states, numerics and policy,
+    and the data, all there."""
+
+    def __init__(self, index: int, size: int, device, x, y, cfg, generators,
+                 init_params, states, numerics, policy):
+        lo = self.lo = index * size
+        self.size, self.device = size, device
+        sl = slice(lo, lo + size)
+        self.x, self.y = x.to(device), y.to(device)
+        self.gens = _lane_generators(generators[sl], device)
+        if states is None:
+            if init_params is not None:
+                init_params = (init_params if init_params.lanes is None
+                               else lanes_mod.tree_map(lambda t: t[sl],
+                                                       init_params))
+                init_params = lanes_mod.tree_map(lambda t: t.to(device),
+                                                 init_params)
+            self.states = init_outer_state_lanes(cfg, self.x, self.gens,
+                                                 init_params=init_params)
+        else:
+            self.states = lanes_mod.tree_map(lambda t: t[sl].to(device),
+                                             states)
+        self.numerics = (None if numerics is None else
+                         lanes_mod.tree_map(lambda t: t[sl], numerics))
+        self.policy = (None if policy is None else
+                       lanes_mod.tree_map(lambda t: t[sl].to(device), policy))
+
+    def run(self, cfg: OuterConfig, k: int, batch_idx) -> dict:
+        """One round of ``k`` steps; its metrics read to the host."""
+        sched = (None if batch_idx is None else
+                 [np.asarray(b)[self.lo:self.lo + self.size]
+                  for b in batch_idx])
+        if self.policy is None:
+            self.states, metrics = outer_scan(
+                self.states, self.x, self.y, cfg, k, lanes=True,
+                numerics=self.numerics, generators=self.gens,
+                batch_idx=sched)
+        else:
+            (self.states, self.policy), metrics = outer_scan(
+                self.states, self.x, self.y, cfg, k, lanes=True,
+                numerics=self.numerics, budget=self.policy,
+                generators=self.gens, batch_idx=sched)
+        _sync(self.states.carry_v)
+        return _host_metrics(metrics)
 
 
 def pick_sgd_learning_rate(

@@ -359,7 +359,7 @@ def _outer_step_budget_lanes(states: OuterState, policy: BudgetPolicy,
                              x: torch.Tensor, y: torch.Tensor,
                              cfg: OuterConfig,
                              numerics: Optional[SolverNumerics] = None,
-                             generators=None
+                             generators=None, batch_idx=None
                              ) -> tuple[OuterState, BudgetPolicy, dict]:
     _require_history(cfg)
     lanes = num_lanes(states)
@@ -368,7 +368,8 @@ def _outer_step_budget_lanes(states: OuterState, policy: BudgetPolicy,
     policy = policy.to(x.device)
     alloc, pred = budget_allocate(policy, num)
     states, metrics = _outer_step_lanes(
-        states, x, y, cfg, num._replace(max_epochs=alloc), generators)
+        states, x, y, cfg, num._replace(max_epochs=alloc), generators,
+        batch_idx=batch_idx)
     policy, decision = budget_observe(
         policy, metrics["res_history"], metrics["iters"], metrics["epochs"],
         metrics["res_y"], metrics["res_z"], num.tolerance)
@@ -411,7 +412,8 @@ def outer_step_budget(state: OuterState, policy: BudgetPolicy,
 def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
                cfg: OuterConfig, num_steps: int, lanes: bool = False,
                numerics: Optional[SolverNumerics] = None,
-               budget: Optional[BudgetPolicy] = None, generators=None):
+               budget: Optional[BudgetPolicy] = None, generators=None,
+               batch_idx=None):
     """Run ``num_steps`` outer steps, keeping each step's metrics on the
     device and stacking them: a leading ``num_steps`` axis (then the lane
     axis when ``lanes``), read by the caller once per round.
@@ -422,7 +424,9 @@ def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
     :class:`BudgetPolicy`, lane-stacked when ``lanes``) runs the budget
     controller in every step and returns ``((state, policy), metrics)``;
     pass the returned policy into the next round. ``generators``: one
-    generator, or one per lane.
+    generator, or one per lane. ``batch_idx``, when given, hands over
+    SGD's block schedule of each step (step i's ``batch_idx[i]``: (B,
+    iters) when ``lanes``, else (iters,)) in place of draws.
     """
     states = state if lanes else stack_states([state])
     policy = budget
@@ -430,12 +434,16 @@ def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
         policy = broadcast_policy(policy, 1)
     gens = generators if lanes else [generators]
     per_step = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
+        sched = None if batch_idx is None else batch_idx[i]
+        if sched is not None and not lanes:
+            sched = [sched]
         if policy is None:
-            states, m = _outer_step_lanes(states, x, y, cfg, numerics, gens)
+            states, m = _outer_step_lanes(states, x, y, cfg, numerics, gens,
+                                          batch_idx=sched)
         else:
             states, policy, m = _outer_step_budget_lanes(
-                states, policy, x, y, cfg, numerics, gens)
+                states, policy, x, y, cfg, numerics, gens, batch_idx=sched)
         per_step.append(m)
     metrics = {}
     for k in (per_step[0] if per_step else {}):

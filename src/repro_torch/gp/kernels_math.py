@@ -1,9 +1,10 @@
 """Dense kernel mathematics over the registered stationary kernels.
 
-Port of ``repro.gp.kernels_math`` (the fragment the serve path uses):
-``k(a, b) = s^2 * kappa(r^2)`` with ``r = ||(a - b) / ell||``, and the
-regularised matrix ``H = K(x, x) + sigma^2 I``. These are the dense oracles
-and the building blocks of the plain tiled MVM the gradient differentiates.
+Port of ``repro.gp.kernels_math``: ``k(a, b) = s^2 * kappa(r^2)`` with
+``r = ||(a - b) / ell||``, the regularised matrix ``H = K(x, x) + sigma^2
+I``, and H @ v dense or streamed over row blocks. These are the dense
+oracles and the building blocks of the plain tiled MVM the gradient
+differentiates.
 """
 from __future__ import annotations
 
@@ -54,3 +55,46 @@ def regularised_kernel_matrix(x: torch.Tensor, params: HyperParams,
     k = kernel_matrix(x, x, params, kind=kind)
     eye = torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
     return k + (params.noise**2) * eye
+
+
+def kernel_mvm_streamed(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                        params: HyperParams, kind: Optional[str] = None,
+                        block_rows: int = 1024) -> torch.Tensor:
+    """K(x1, x2) @ v without materialising K: O(block_rows * m) memory.
+
+    Streams over row blocks of x1; each block builds its distance tile (the
+    expanded form of :func:`scaled_sqdist`), applies the profile and
+    contracts against ``v``. The plain analogue of the distance-tile
+    kernel, and the single-device form of the ring MVM
+    (:mod:`repro_torch.distributed.ring`).
+
+    Args:
+      x1: (n, d); x2: (m, d); v: (m, s) or (m,).
+    Returns:
+      (n, s) or (n,): K @ v.
+    """
+    kind = resolve_kind(kind, params)
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[:, None]
+    profile = profile_from_r2(kind)
+    blocks = [profile(scaled_sqdist(x1[i:i + block_rows], x2,
+                                    params.lengthscales), params.signal) @ v
+              for i in range(0, x1.shape[0], block_rows)]
+    out = torch.cat(blocks) if blocks else v.new_zeros((0, v.shape[1]))
+    return out[:, 0] if squeeze else out
+
+
+def h_mvm_dense(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
+                kind: Optional[str] = None) -> torch.Tensor:
+    """H_theta @ v via the dense kernel matrix (reference)."""
+    return regularised_kernel_matrix(x, params, kind=kind) @ v
+
+
+def h_mvm_streamed(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
+                   kind: Optional[str] = None,
+                   block_rows: int = 1024) -> torch.Tensor:
+    """H_theta @ v = K @ v + sigma^2 v, streamed (no n x n matrix)."""
+    kv = kernel_mvm_streamed(x, x, v, params, kind=kind,
+                             block_rows=block_rows)
+    return kv + (params.noise**2) * v

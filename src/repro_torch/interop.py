@@ -22,6 +22,15 @@ lane-stacked.
 
     {"x", "correction", "rff": {...}, "params": {...}, "kind"}
 
+``gp_step_state_from_numpy`` (and ``gp_step_state_to_numpy``, its
+inverse) carry the distributed step's ``GPStepState``::
+
+    {"params": {...}, "adam": {"step", "mu", "nu"}, "carry_v" (n, 1 + s),
+     "res_y", "res_z"}
+
+``carry_v`` is split over the mesh's row axes; the rest sits on the mesh's
+first device.
+
 ``outer_state_from_checkpoint`` reads a ``step_<k>.npz`` that the
 reference's ``fit(ckpt_dir=...)`` wrote. Its leaves are those of
 ``jax.tree.leaves`` of the reference's ``OuterState``, in this order
@@ -51,6 +60,8 @@ import torch
 from repro_torch.checkpoint import load_leaves
 from repro_torch.core.estimators import ProbeState
 from repro_torch.core.outer import OuterState
+from repro_torch.distributed.gp_step import GPStepState
+from repro_torch.distributed.sharding import shard_rows
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.gp.rff import RFFState
 from repro_torch.serve.artifact import ServableGP
@@ -110,6 +121,40 @@ def outer_state_from_numpy(tree: dict, device="cpu") -> OuterState:
         carry_v=_t(tree["carry_v"], device),
         step=_step(tree["step"]),
     )
+
+
+def gp_step_state_from_numpy(tree: dict, mesh) -> GPStepState:
+    """The reference's distributed ``GPStepState`` (as numpy dicts) as the
+    port's on ``mesh``."""
+    device = mesh.devices[0]
+    params = _params(tree["params"], device)
+    adam = tree["adam"]
+    return GPStepState(
+        params=params,
+        adam=AdamState(step=_step(adam["step"]),
+                       mu=_params(adam["mu"], device, kernel=params.kernel),
+                       nu=_params(adam["nu"], device, kernel=params.kernel)),
+        carry_v=shard_rows(_t(tree["carry_v"], device), mesh),
+        res_y=_t(tree["res_y"], device), res_z=_t(tree["res_z"], device))
+
+
+def gp_step_state_to_numpy(state: GPStepState) -> dict:
+    """A port ``GPStepState`` in :func:`gp_step_state_from_numpy`'s layout
+    (``carry_v`` gathered)."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def params(p):
+        return {"raw_lengthscales": arr(p.raw_lengthscales),
+                "raw_signal": arr(p.raw_signal),
+                "raw_noise": arr(p.raw_noise), "kernel": p.kernel}
+
+    return {"params": params(state.params),
+            "adam": {"step": np.asarray(state.adam.step),
+                     "mu": params(state.adam.mu),
+                     "nu": params(state.adam.nu)},
+            "carry_v": arr(state.carry_v.gather("cpu")),
+            "res_y": arr(state.res_y), "res_z": arr(state.res_z)}
 
 
 def numerics_from_numpy(tree: dict, device="cpu") -> SolverNumerics:

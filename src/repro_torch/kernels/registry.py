@@ -69,6 +69,11 @@ def get_kernel(name: str) -> KernelSpec:
         ) from None
 
 
+def available_kernels() -> tuple[str, ...]:
+    """The registered kernel names, sorted."""
+    return tuple(sorted(KERNELS))
+
+
 # -- profiles ---------------------------------------------------------------
 
 

@@ -23,8 +23,11 @@ kernels are built once per process); ``--expect-one-compile-per-group``
 fails the run unless it equals the groups run. ``--isolate`` runs one
 subprocess per cell instead (the same artifacts). ``--device`` defaults to
 ``cuda`` and fails without a card; ``--device cpu`` runs the kernels' plain
-versions. ``--shard-lanes`` needs the distributed slice (``launch/mesh.py``
-and ``distributed/``) and is refused.
+versions. ``--shard-lanes`` shards each group's lanes over a 1-D lane
+mesh (:func:`repro_torch.launch.mesh.make_lane_mesh`): every visible card
+under ``--device cuda``, the one CPU under ``--device cpu``; a group whose
+lane count does not divide by the mesh size runs unsharded. The lane
+groups of the mesh's positions run in turn (see ``fit_batch``).
 """
 from __future__ import annotations
 
@@ -242,8 +245,12 @@ def run_batched(cells, x, y, args, on_group=None) -> dict:
     from repro_torch.core.driver import fit_batch
     from repro_torch.solvers import stack_numerics
 
+    mesh = None
+    if args.shard_lanes:
+        mesh = lane_mesh(args)
+        print(f"[batch] lane mesh: {mesh.size} device(s)")
     calls0 = FIT_BATCH_CALLS[0]
-    failures, num_groups, num_cells = [], 0, 0
+    failures, num_groups, num_cells, sharded_groups = [], 0, 0, 0
     for cfg, members in group_cells(cells, args).items():
         todo = [c for c in members
                 if not cell_done(args.out, c.arch.name, c.seed, c.tag)]
@@ -256,26 +263,53 @@ def run_batched(cells, x, y, args, on_group=None) -> dict:
         label = ",".join(sorted({c.arch.name for c in todo}))
         t0 = time.time()
         nums = stack_numerics([cell_numerics(c, args) for c in todo])
+        group_mesh = mesh
+        if mesh is not None and len(todo) % mesh.size != 0:
+            print(f"[batch] note: group {label} has {len(todo)} lanes, not "
+                  f"a multiple of {mesh.size} devices; running unsharded")
+            group_mesh = None
         try:
             FIT_BATCH_CALLS[0] += 1
             results = fit_batch(x, y, cfg, [c.seed for c in todo],
-                                numerics=nums)
+                                numerics=nums, mesh=group_mesh)
         except Exception as e:  # noqa: BLE001 - the sweep keeps going
             print(f"[batch] FAIL group {label}: {e}", file=sys.stderr)
             failures.extend([(c.arch.name, c.seed, c.tag) for c in todo])
             continue
         dt = time.time() - t0
-        print(f"[batch] OK {label} x {len(todo)} lanes ({dt:.1f}s)",
-              flush=True)
+        if group_mesh is not None:
+            sharded_groups += 1
+        shard_note = (f", sharded x{mesh.size}" if group_mesh is not None
+                      else "")
+        print(f"[batch] OK {label} x {len(todo)} lanes ({dt:.1f}s"
+              f"{shard_note})", flush=True)
         if on_group is not None:
             on_group(cfg, todo, results, dt)
         for c, res in zip(todo, results):
             _write_cell(args.out, c, _cell_record(c, res, "batched",
                                                   len(todo)))
             num_cells += 1
+    # Only claim sharding that happened: a mesh was built and at least one
+    # group ran on it.
     return {"failures": failures, "groups": num_groups,
             "num_compiles": FIT_BATCH_CALLS[0] - calls0, "cells": num_cells,
-            "mode": "batched", "shard_devices": 0, "sharded_groups": 0}
+            "mode": "batched",
+            "shard_devices": mesh.size if mesh is not None and sharded_groups
+            else 0,
+            "sharded_groups": sharded_groups}
+
+
+def lane_mesh(args):
+    """The lane mesh of ``--shard-lanes``: every visible card under
+    ``--device cuda`` (raises without one), the one CPU under ``--device
+    cpu``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_lane_mesh
+
+    if torch.device(args.device).type == "cpu":
+        return make_lane_mesh(devices=[args.device])
+    return make_lane_mesh()
 
 
 def run_isolated(cells, args, argv_passthrough: list) -> dict:
@@ -383,8 +417,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "each rank is its own group; cells gain an __rk<r> "
                          "tag)")
     ap.add_argument("--shard-lanes", action="store_true",
-                    help="shard each group's lanes across cards (needs the "
-                         "distributed slice; refused)")
+                    help="shard each group's lanes across the visible cards "
+                         "(1-D lane mesh; the one CPU under --device cpu)")
     ap.add_argument("--bm", type=int, default=256)
     ap.add_argument("--bn", type=int, default=256)
     ap.add_argument("--isolate", action="store_true",
@@ -408,10 +442,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, on_group=None) -> int:
     """CLI entry; ``on_group`` is passed to :func:`run_batched`."""
     args = build_parser().parse_args(argv)
-    if args.shard_lanes:
-        raise NotImplementedError(
-            "--shard-lanes needs launch/mesh.py and distributed/, which are "
-            "not ported yet (ROADMAP Queue 1 item 5); run without it")
     kernels = args.kernels.split(",") if args.kernels else None
     archs = sweep_archs(kernels, args.smoke)
     if args.only_cell:

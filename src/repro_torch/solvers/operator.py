@@ -11,6 +11,10 @@ and the dense matrix for tests. Backends of the full MVM and the slabs:
                    counterpart of the reference's ``pallas`` backend (on CPU
                    tensors it runs the kernel's plain version).
 
+``kernel_mvm_override`` replaces the full MVM (K @ v; the noise is still
+added here), so a solver runs on, e.g., the ring MVM of
+:mod:`repro_torch.distributed.ring`.
+
 Block index convention: AP and SGD work on contiguous blocks
 ``[start, start + size)``; ``n`` must be a multiple of the block size (the
 data pipeline pads with far-away phantom points whose kernel row against
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from functools import lru_cache
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -114,6 +118,11 @@ class HOperator:
     backend: str = "streamed"  # dense | streamed | cuda
     bm: int = 1024
     bn: int = 1024
+    # Optional externally supplied full-MVM override (e.g. the ring MVM of
+    # repro_torch.distributed.ring); (v: (n, s)) -> (n, s) for K @ v, the
+    # noise added here; a solver's B = 1 lift calls it on its one lane. The
+    # slabs and blocks still read ``x``.
+    kernel_mvm_override: Optional[Callable] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -172,6 +181,13 @@ class HOperator:
             for l in range(self.lanes)])
 
     def _kernel_mvm(self, v: torch.Tensor) -> torch.Tensor:
+        if self.kernel_mvm_override is not None:
+            if v.ndim == 2:
+                return self.kernel_mvm_override(v)
+            if v.shape[0] != 1:
+                raise ValueError("kernel_mvm_override is one system's MVM; "
+                                 f"got {v.shape[0]} lanes")
+            return self.kernel_mvm_override(v[0])[None]
         if self.lanes is not None and self.backend != "cuda":
             return self._lanewise(HOperator._kernel_mvm, v)
         if self.backend == "dense":

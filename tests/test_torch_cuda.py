@@ -731,3 +731,108 @@ def test_cuda_fetch_servable_after_admin_swap(tmp_path):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+# The distributed path on virtual shards of one card: a mesh that repeats
+# cuda:0 runs the ring's copies and tiles as a multi-card host would.
+RING_N, RING_D, RING_S = 4000, 26, 65
+
+
+def _virtual_mesh(shape, axes):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes,
+                     devices=[torch.device("cuda", 0)] * int(np.prod(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_ring_matches_one_launch(kind):
+    """On a card: ring_h_mvm over 8 virtual cuda:0 shards ((2, 2, 2) pod x
+    data x model) against the one-launch h_mvm, within 2e-5 of the largest
+    entry (both 3xTF32 kernels; the ring sums 64 tiles in another order),
+    and one ring MVM launches the forward kernel P^2 = 64 times."""
+    _cuda_or_skip()
+    from repro_torch.distributed.ring import ring_h_mvm
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.kernels.ops import h_mvm
+
+    mesh = _virtual_mesh((2, 2, 2), ("pod", "data", "model"))
+    x, v = _draws(31, (RING_N, RING_D), (RING_N, RING_S))
+    xc = 0.3 * torch.tensor(x, device="cuda")
+    vc = torch.tensor(v, device="cuda")
+    params = _params(RING_D, 32, kind)
+    params = params.with_leaves([p.cuda() for p in params.leaves])
+    xs, vs = shard_rows(xc, mesh), shard_rows(vc, mesh)
+    tiled.reset_launch_counts()
+    got = ring_h_mvm(xs, vs, params, mesh, kind=kind)
+    torch.cuda.synchronize()
+    assert tiled.launch_counts()[tiled.KERNEL_NAME] == mesh.size ** 2
+    want = h_mvm(xc, vc, params)
+    err = (got.gather("cuda") - want).abs().max().item()
+    assert err <= 2e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_gp_step_on_8_shards_matches_1():
+    """On a card: three make_gp_outer_step steps on 8 virtual shards
+    against the same on a (1, 1) mesh from one state: hyperparameters
+    within 1e-4 (the CPU-vs-card bound), res_z falling."""
+    _cuda_or_skip()
+    from repro_torch.distributed.gp_step import GPStepState, make_gp_outer_step
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.gp.rff import init_rff
+    from repro_torch.train.adam import adam_init
+
+    n, d, s = 2048, 5, 8
+    x, y, w_eps = _draws(33, (n, d), (n,), (n, s))
+    rff = init_rff(torch.Generator(device="cuda").manual_seed(34), 256, d, s,
+                   device="cuda")
+    runs = []
+    for shape in ((4, 2), (1, 1)):
+        mesh = _virtual_mesh(shape, ("data", "model"))
+        params = _params(d, 35, "matern32")
+        params = params.with_leaves([p.cuda() for p in params.leaves])
+        state = GPStepState(params, adam_init(params), shard_rows(
+            torch.zeros((n, 1 + s), device="cuda"), mesh),
+            torch.zeros((), device="cuda"), torch.zeros((), device="cuda"))
+        step = make_gp_outer_step(mesh, s, solver_epochs=10)
+        args = [shard_rows(torch.tensor(a, device="cuda"), mesh)
+                for a in (x, y, w_eps)]
+        res_z = []
+        for _ in range(3):
+            state = step(state, args[0], args[1], rff, args[2])
+            res_z.append(float(state.res_z))
+        runs.append((state.params.flat().cpu(), res_z))
+    (h8, z8), (h1, z1) = runs
+    assert torch.allclose(h8, h1, rtol=1e-4, atol=1e-6)
+    assert z8[2] < z8[0] and z1[2] < z1[0]
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_ap_tracks_its_residual():
+    """On a card: distributed_ap_sweeps over 8 virtual shards; the tracked
+    residual against b - H v through the one-launch h_mvm (1e-3, the
+    reference test's bound), and a warm continuation decreases it."""
+    _cuda_or_skip()
+    from repro_torch.distributed.ap import distributed_ap_sweeps
+    from repro_torch.distributed.ring import global_col_norms
+    from repro_torch.kernels.ops import h_mvm
+
+    mesh = _virtual_mesh((4, 2), ("data", "model"))
+    x, b = _draws(36, (4096, 5), (4096, 9))
+    xc, bc = torch.tensor(x, device="cuda"), torch.tensor(b, device="cuda")
+    params = _params(5, 37, "matern32")
+    params = params.with_leaves([p.cuda() for p in params.leaves])
+    v, r = distributed_ap_sweeps(xc, bc, torch.zeros_like(bc), params, mesh,
+                                 block_size=128, num_iters=20)
+    r_true = bc - h_mvm(xc, v.gather("cuda"), params)
+    assert (r.gather("cuda") - r_true).abs().max().item() <= 1e-3 * max(
+        1.0, r_true.abs().max().item())
+    v2, r2 = distributed_ap_sweeps(xc, bc, v, params, mesh, block_size=128,
+                                   num_iters=20)
+
+    def relres(rr):
+        return (global_col_norms(rr) / bc.norm(dim=0)).max().item()
+
+    assert relres(r2) < relres(r) < 1.0

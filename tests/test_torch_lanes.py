@@ -749,7 +749,9 @@ def test_batch_main_groups_lanes_and_resumes(tmp_path):
 
 def test_batch_grid_tags_and_refusals(tmp_path):
     """A tolerance x lr grid: the reference's tags and groups (the numeric
-    grid rides as lanes); --shard-lanes raises; a colliding grid raises."""
+    grid rides as lanes); --shard-lanes under --device cpu meshes the one
+    CPU (tests/test_torch_distributed.py runs it); a colliding grid
+    raises."""
     argv = ["--tolerances", "0.01,0.05", "--sgd-lrs", "1,2"]
     args = batch.build_parser().parse_args(_batch_argv(tmp_path, *argv))
     cells = batch.make_cells(batch.sweep_archs(["matern32", "rbf"], True),
@@ -758,8 +760,9 @@ def test_batch_grid_tags_and_refusals(tmp_path):
                                 [0, 1], args)
     assert [c.tag for c in cells] == [c.tag for c in jcells]
     assert len(batch.group_cells(cells, args)) == 2
-    with pytest.raises(NotImplementedError, match="distributed"):
-        batch.main(_batch_argv(tmp_path, "--shard-lanes"))
+    mesh = batch.lane_mesh(batch.build_parser().parse_args(
+        _batch_argv(tmp_path, "--shard-lanes")))
+    assert mesh.shape == {"lanes": 1} and mesh.devices == [torch.device("cpu")]
     bad = batch.build_parser().parse_args(
         _batch_argv(tmp_path, "--tolerances", "0.1000001,0.1000002"))
     with pytest.raises(ValueError, match="collide"):

@@ -30,7 +30,13 @@ Phases, each printing JSON lines:
    each with its column split count and the bound split as for the
    forward kernel. Then the gradient of ``mll_grad_estimate`` through the
    kernel pair against autograd through the plain tiled MVM at n = 2000,
-   for both estimators.
+   for both estimators. Then (since the Matérn compat slice) the reference's
+   Matérn-3/2 names at the CG shape: ``kernels.ops.matern_mvm``,
+   ``kernels.tiled.matern_mvm_pallas`` and ``matern_mvm_bwd_pallas``, each
+   launching its CUDA kernel (launch counts), bitwise equal to the
+   ``kind="matern32"`` call it aliases, within the kernels' tolerance of
+   the plain version, and timed beside that call (CUDA events). They are
+   aliases, not kernels: the kernels line keeps its two entries.
 3. serve: the port's serve entry point (``repro_torch.launch.serve``) at the
    paper's full pol size, gp-iterative widths (64 probes, 1000 RFF pairs,
    Matérn-3/2), CG to 0.01 within 100 epochs, 10 outer steps, then 20
@@ -548,6 +554,75 @@ def phase_grad(torch) -> None:
             bad.append(est)
     if bad:
         raise AssertionError(f"kernel gradient disagrees for {bad}")
+
+
+def phase_matern(torch, tiled, smi: str) -> None:
+    """The Matérn-3/2 compatibility names at the CG shape (pol 12150 x
+    12150, d = 26, s = 65), each against the ``kind="matern32"`` call it
+    aliases (bitwise) and the plain version (``TOL_VS_PLAIN`` forward,
+    ``TOL_BWD_VS_PLAIN`` backward, relative to the largest output), with
+    the launches one call of each makes and CUDA-event times of both. The
+    hyperparameters name another kernel: the alias fixes the kind."""
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.kernels import ops
+
+    n, _, d, s = CG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, v, g = rnd(n, d), rnd(n, s), rnd(n, s)
+    params = HyperParams(torch.full((d,), 1.5, device="cuda"),
+                         torch.tensor(0.3, device="cuda"),
+                         torch.tensor(-1.0, device="cuda"), kernel="rbf")
+    u = (x / params.lengthscales).contiguous()
+    sig2 = params.signal ** 2
+    fwd, bwd = tiled.KERNEL_NAME, tiled.BWD_KERNEL_NAME
+    cases = (
+        ("kernels.ops.matern_mvm", fwd, TOL_VS_PLAIN, 20,
+         lambda: ops.matern_mvm(x, x, v, params),
+         lambda: ops.kernel_mvm(x, x, v, params, kind="matern32"),
+         lambda: sig2 * tiled.kernel_mvm_plain(u, u, v, "matern32")),
+        ("kernels.tiled.matern_mvm_pallas", fwd, TOL_VS_PLAIN, 20,
+         lambda: tiled.matern_mvm_pallas(u, u, v),
+         lambda: tiled.kernel_mvm_unit(u, u, v, "matern32"),
+         lambda: tiled.kernel_mvm_plain(u, u, v, "matern32")),
+        ("kernels.tiled.matern_mvm_bwd_pallas", bwd, TOL_BWD_VS_PLAIN, 10,
+         lambda: tiled.matern_mvm_bwd_pallas(u, u, g, v),
+         lambda: tiled.kernel_mvm_bwd_unit(u, u, g, v, "matern32"),
+         lambda: tiled.kernel_mvm_bwd_plain(u, u, g, v, "matern32")),
+    )
+    bad = []
+    for name, kernel, tol, reps, alias, wrapped, plain in cases:
+        launches = []
+        outs = []
+        for fn in (alias, wrapped):
+            before = tiled.launch_counts()[kernel]
+            outs.append(fn())
+            torch.cuda.synchronize()
+            launches.append(tiled.launch_counts()[kernel] - before)
+        ref = plain()
+        err = (outs[0].double() - ref.double()).abs().max().item()
+        scale = ref.abs().max().item()
+        bitwise = bool(torch.equal(outs[0], outs[1]))
+        rec = {"phase": "matern", "name": name, "kernel": kernel,
+               "shape": "cg", "n": n, "m": n, "d": d, "s": s,
+               "launches_per_call": launches[0],
+               "wrapped_launches_per_call": launches[1],
+               "bitwise_equal_to_wrapped": bitwise,
+               "max_abs_err": err, "max_abs_out": scale,
+               "rel_err": err / scale, "tol_rel": tol,
+               "ms": time_ms(alias, reps), "wrapped_ms": time_ms(wrapped, reps),
+               "nvidia_smi": smi}
+        rec["ok"] = bool(bitwise and launches[0] >= 1
+                         and launches[0] == launches[1]
+                         and math.isfinite(err) and err <= tol * scale)
+        emit(rec)
+        if not rec["ok"]:
+            bad.append(rec)
+    if bad:
+        raise AssertionError(f"{len(bad)} Matérn alias checks failed: {bad}")
 
 
 def phase_serve(torch, tiled) -> tuple:
@@ -2832,6 +2907,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("kernels_bwd")
     phase_s["kernels_bwd"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        phase_matern(torch, tiled, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("matern")
+    phase_s["matern"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     serve_run = None
     try:

@@ -11,6 +11,15 @@ wrapper runs its plain PyTorch version instead.
 Entry points default to ``device="cuda"`` and raise when no card is
 present; only an explicit ``device="cpu"`` runs on the CPU.
 """
-from repro_torch.device import resolve_device
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Imported at first use, so the stdlib-only ``repro_torch.analysis``
+    # (the port's lint suite) imports without torch.
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

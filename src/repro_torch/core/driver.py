@@ -158,6 +158,7 @@ def _append_round(history: dict, metrics: dict, dt: float, k: int,
     history["solver_frac_iters"].extend(frac)
     rings = None
     if "res_history" in metrics:
+        # torch-lint: disable=trace-host-sync -- the rings are numpy here (after _host_metrics); unroll_history reads only a tensor
         rings = [unroll_history(h, i)
                  for h, i in zip(col("res_history", None), iters)]
         history.setdefault("res_history", []).extend(rings)
@@ -187,6 +188,7 @@ def _emit_round(event_log, metrics: dict, k: int, lane: Optional[int],
                       step_time_s=dt / k)
         if rings is not None:
             row = rings[j]
+            # torch-lint: disable=trace-host-sync -- a numpy row of the host rings, not a tensor
             fields["res_history"] = row[np.isfinite(row[:, 0])].tolist()
         event_log.emit("solve_step", **fields)
         if budget_cols:
@@ -285,8 +287,10 @@ def fit(
             (state, policy), metrics = outer_scan(
                 state, x, y, cfg, k, numerics=numerics, budget=policy,
                 generators=generator)
+        # torch-lint: disable=trace-host-sync -- one synchronise per round of steps, to time the round on the card's clock
         _sync(state.carry_v)
         dt = time.perf_counter() - ts
+        # torch-lint: disable=trace-host-sync -- the round's metrics read once per round of steps, one copy per metric
         metrics = _host_metrics(metrics)
         solver_time += _append_round(history, metrics, dt, k,
                                      event_log=event_log,
@@ -302,6 +306,7 @@ def fit(
                 print(f"[fit] step {step}: rmse={m['rmse']:.4f} "
                       f"llh={m['llh']:.4f}", flush=True)
         if ckpt_dir and ckpt_every and step % ckpt_every == 0:
+            # torch-lint: disable=trace-host-sync -- the generator's state is a CPU tensor, read at a checkpoint step only
             checkpoint(step)
         if verbose:
             print(f"[fit] step {step}/{cfg.num_steps} "
@@ -554,6 +559,7 @@ def pick_sgd_learning_rate(
                         batch_idx=batch_idx)
             if trials is not None:
                 trials.append((lr, res))
+            # torch-lint: disable=trace-host-sync -- the lr grid reads each trial's residuals to pick the next lr: one read per solve
             r = float(res.res_y) + float(res.res_z)
             if np.isfinite(r) and r < divergence_threshold:
                 best = lr

@@ -298,6 +298,7 @@ def _host_metrics(metrics: dict) -> dict:
     of steps reads the host once."""
     out = {}
     for k, v in metrics.items():
+        # torch-lint: disable=trace-host-sync -- one copy per metric tensor, once per round of steps
         out[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
     return out
 

@@ -4,7 +4,7 @@
 -5/2: profile, derivative, spectral sampler); ``tiled`` the hand-written
 CUDA kernels and their plain versions; ``ops`` the differentiable op around
 them; ``ref`` the dense oracle. The names the reference's package exports
-are exported here (without its ``matern_*`` compatibility aliases); the
+are exported here, the ``matern_*`` compatibility aliases among them; the
 ops and the oracle are imported at first use, since ``ref`` builds on
 ``repro_torch.gp.kernels_math``, which imports the registry.
 """
@@ -16,8 +16,8 @@ from repro_torch.kernels.registry import (
     register_kernel,
 )
 
-_LAZY = {"kernel_mvm": "ops", "h_mvm": "ops", "kernel_mvm_ref": "ref",
-         "h_mvm_ref": "ref"}
+_LAZY = {"kernel_mvm": "ops", "h_mvm": "ops", "matern_mvm": "ops",
+         "kernel_mvm_ref": "ref", "h_mvm_ref": "ref", "matern_mvm_ref": "ref"}
 
 __all__ = [
     "KERNELS",
@@ -29,6 +29,8 @@ __all__ = [
     "h_mvm",
     "kernel_mvm_ref",
     "h_mvm_ref",
+    "matern_mvm",
+    "matern_mvm_ref",
 ]
 
 

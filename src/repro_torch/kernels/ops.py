@@ -97,3 +97,11 @@ def h_mvm(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
     if params.lanes is not None:
         noise_var = noise_var[:, None, None]
     return kernel_mvm(x, x, v, params, kind=kind) + noise_var * v
+
+
+def matern_mvm(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+               params: HyperParams) -> torch.Tensor:
+    """The reference's original Matérn-3/2 entry point: :func:`kernel_mvm`
+    with ``kind="matern32"`` (the kernels tile on their own, so there is no
+    ``bm``/``bn``/``interpret``)."""
+    return kernel_mvm(x1, x2, v, params, kind="matern32")

@@ -25,3 +25,10 @@ def h_mvm_ref(x: torch.Tensor, v: torch.Tensor, params: HyperParams,
               kind: Optional[str] = None) -> torch.Tensor:
     """Dense H @ v = K(x, x) @ v + sigma^2 v."""
     return kernel_mvm_ref(x, x, v, params, kind=kind) + (params.noise**2) * v
+
+
+def matern_mvm_ref(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                   params: HyperParams) -> torch.Tensor:
+    """The reference's original Matérn-3/2 oracle: :func:`kernel_mvm_ref`
+    with ``kind="matern32"``."""
+    return kernel_mvm_ref(x1, x2, v, params, kind="matern32")

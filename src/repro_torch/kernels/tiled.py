@@ -60,7 +60,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from functools import lru_cache
+from functools import lru_cache, partial
 from pathlib import Path
 from typing import Optional
 
@@ -712,3 +712,9 @@ def kernel_mvm_bwd_fused_unit(u: torch.Tensor, g: torch.Tensor,
         return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=-1),
                                     torch.cat([v, g], dim=-1), kind=kind)
     return kernel_mvm_bwd_fused_cuda(u, g, v, kind=kind)
+
+
+# The reference's Matérn-3/2 aliases of its two Pallas kernels, kept under
+# their names: the same two kernels (plain versions on CPU tensors).
+matern_mvm_pallas = partial(kernel_mvm_unit, kind="matern32")
+matern_mvm_bwd_pallas = partial(kernel_mvm_bwd_unit, kind="matern32")

@@ -214,11 +214,14 @@ def run_bo(
         idx, score = acquisition_argmax(
             pred.mean, pred.var, name=bo.acquisition, best=best_y,
             beta=bo.beta, xi=bo.xi)
+        # torch-lint: disable=trace-host-sync -- the acquisition's argmax picks the next input on the host: one read a BO round
         i = int(idx)
         x_sel = cands[i]
+        # torch-lint: disable=trace-host-sync -- the observed value goes into the round's record: one read a BO round
         y_obs = float(objective(x_sel[None, :])[0])
         online.append(x_sel[None, :],
                       torch.tensor([y_obs], dtype=y0.dtype, device=device))
+        # torch-lint: disable=trace-host-sync -- the acquisition score goes into the round's record: one read a BO round
         entry = {"round": r, "y": y_obs, "score": float(score),
                  "acquisition": bo.acquisition, "index": i}
         if (r + 1) % bo.refresh_every == 0:

@@ -238,7 +238,7 @@ class OnlineGP:
         self._solve_block = self._make_solve(strip_numerics(self._scfg_block))
         if growth == GROWTH_GEOMETRIC and reserve > 0:
             with self._lock:
-                self._grow_to(self._n + int(reserve), reserve_rows)
+                self._grow_to_locked(self._n + int(reserve), reserve_rows)
         elif reserve_rows is not None:
             raise ValueError("reserve_rows needs growth='geometric' and "
                              "reserve > 0")
@@ -252,6 +252,10 @@ class OnlineGP:
     @property
     def capacity(self) -> int:
         """Padded row count of the stored arrays (== n under exact growth)."""
+        with self._lock:
+            return self._capacity_locked()
+
+    def _capacity_locked(self) -> int:
         return int(self.x.shape[0])
 
     # -- solver plumbing -----------------------------------------------------
@@ -287,8 +291,9 @@ class OnlineGP:
         return None
 
     # -- growth --------------------------------------------------------------
-    def _ghost_unit(self) -> float:
-        """Spacing of the ghost ray (computed once, from data + lengthscale)."""
+    def _ghost_unit_locked(self) -> float:
+        """Spacing of the ghost ray (computed once, from data + lengthscale;
+        lock held by caller)."""
         if self._ghost_unit_val is None:
             span = (float(torch.max(torch.abs(self.x[: self._n])))
                     if self._n else 1.0)
@@ -296,9 +301,10 @@ class OnlineGP:
             self._ghost_unit_val = GHOST_UNIT_FACTOR * (span + ls + 1.0)
         return self._ghost_unit_val
 
-    def _ghost_inputs(self, k: int) -> torch.Tensor:
-        """(k, d) inert pad points: far from the data AND from each other."""
-        unit = self._ghost_unit()
+    def _ghost_inputs_locked(self, k: int) -> torch.Tensor:
+        """(k, d) inert pad points: far from the data AND from each other
+        (lock held by caller)."""
+        unit = self._ghost_unit_locked()
         d, dtype, device = self.x.shape[1], self.x.dtype, self.x.device
         idx = (torch.arange(1, k + 1, dtype=dtype, device=device)
                + torch.tensor(self._ghost_count, dtype=dtype, device=device))
@@ -306,7 +312,8 @@ class OnlineGP:
         return idx[:, None] * unit * torch.ones((1, d), dtype=dtype,
                                                 device=device)
 
-    def _extend(self, num_new: int, rows: Optional[torch.Tensor]) -> None:
+    def _extend_locked(self, num_new: int,
+                       rows: Optional[torch.Tensor]) -> None:
         """Extend the state by ``num_new`` rows (lock held by caller)."""
         if rows is not None and rows.shape[0] != num_new:
             raise ValueError(f"rows has {rows.shape[0]} rows, the extension "
@@ -314,17 +321,17 @@ class OnlineGP:
         self.state = extend_state(self.state, num_new, dtype=self.x.dtype,
                                   generator=self._generator, rows=rows)
 
-    def _grow_to(self, needed: int, rows: Optional[torch.Tensor] = None
-                 ) -> bool:
+    def _grow_to_locked(self, needed: int,
+                        rows: Optional[torch.Tensor] = None) -> bool:
         """Extend capacity up the geometric ladder (lock held by caller);
         True when it grew."""
-        cap = self.capacity
+        cap = self._capacity_locked()
         new_cap = grow_capacity(cap, needed)
         if new_cap <= cap:
             return False
         pad = new_cap - cap
-        self._extend(pad, rows)
-        self.x = torch.cat([self.x, self._ghost_inputs(pad)])
+        self._extend_locked(pad, rows)
+        self.x = torch.cat([self.x, self._ghost_inputs_locked(pad)])
         self.y = torch.cat([self.y, torch.zeros((pad,), dtype=self.y.dtype,
                                                 device=self.y.device)])
         self._counters["growth_events"] += 1
@@ -350,16 +357,16 @@ class OnlineGP:
         until the next :meth:`refine`, whose report and "refresh" event
         carry every trace that contributed appends.
         """
-        if x_new.ndim != 2 or x_new.shape[1] != self.x.shape[1]:
-            raise ValueError(
-                f"x_new must be (k, {self.x.shape[1]}), got {tuple(x_new.shape)}")
         tid = trace_id if trace_id is not None else obs_trace.current_trace_id()
-        x_new = x_new.to(dtype=self.x.dtype, device=self.x.device)
-        y_new = y_new.to(dtype=self.y.dtype, device=self.y.device)
         with self._lock:
+            if x_new.ndim != 2 or x_new.shape[1] != self.x.shape[1]:
+                raise ValueError(f"x_new must be (k, {self.x.shape[1]}), "
+                                 f"got {tuple(x_new.shape)}")
+            x_new = x_new.to(dtype=self.x.dtype, device=self.x.device)
+            y_new = y_new.to(dtype=self.y.dtype, device=self.y.device)
             k = x_new.shape[0]
             if self.growth == GROWTH_GEOMETRIC:
-                grew = self._grow_to(self._n + k, rows)
+                grew = self._grow_to_locked(self._n + k, rows)
                 if rows is not None and not grew:
                     raise ValueError("rows given, but this append needs no "
                                      "growth (its slots were drawn already)")
@@ -371,7 +378,7 @@ class OnlineGP:
                 self.x, self.y = x, y
                 self.state = self.state._replace(carry_v=carry)
             else:
-                self._extend(k, rows)
+                self._extend_locked(k, rows)
                 self.x = torch.cat([self.x, x_new])
                 self.y = torch.cat([self.y, y_new])
             self._n += k
@@ -656,7 +663,7 @@ class OnlineGP:
             rep = self._last_report
             out.update({
                 "n": self._n,
-                "capacity": self.capacity,
+                "capacity": self._capacity_locked(),
                 "growth": self.growth,
                 "pending_appends": self._appended,
                 "num_solve_compiles": self.num_solve_compiles(),

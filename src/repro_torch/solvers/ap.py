@@ -84,6 +84,7 @@ def solve_ap(
     block_base = torch.arange(0, lanes * nb, nb, device=b.device)
     t_dim = sysn.b.shape[-1]
     while steps < cap:
+        # torch-lint: disable=trace-host-sync -- the one stopping read per iteration (any lane active)
         active, run = keep_going(not_converged(res_y, res_z, tol), t,
                                  max_iters)
         syncs += 1

@@ -200,6 +200,7 @@ def unroll_history(hist, iters) -> Optional[np.ndarray]:
     hist = hist.cpu().numpy() if isinstance(hist, torch.Tensor) else np.asarray(hist)
     if hist.ndim > 2:
         iters = np.broadcast_to(np.asarray(iters), hist.shape[:-2])
+        # torch-lint: disable=trace-host-sync -- recursion over numpy rows: the ring tensor was read once above
         return np.stack([unroll_history(h, i) for h, i in zip(hist, iters)])
     n = int(iters)
     if n <= hist.shape[0]:

@@ -82,6 +82,7 @@ def solve_cg(
     t = torch.zeros(lanes, dtype=torch.int32, device=b.device)
     steps, mvms, syncs = 0, 1, 0
     while steps < cap:
+        # torch-lint: disable=trace-host-sync -- the one stopping read per iteration (any lane active)
         active, run = keep_going(not_converged(res_y, res_z, tol), t,
                                  max_iters)
         syncs += 1

@@ -112,6 +112,7 @@ def kernel_mvm_tiled(
 class HOperator:
     """H_theta = K(x, x; theta) + sigma^2 I as a linear operator."""
 
+    # torch-lint: disable=config-static-array -- frozen for immutability; the operator is never hashed or used as a cache or group key
     x: torch.Tensor  # (n, d) training inputs
     params: HyperParams
     kind: Optional[str] = None  # None => params.kernel

@@ -154,10 +154,12 @@ def solve_sgd(
     while steps < cap:
         go = not_converged(res_y, res_z, num.tolerance) & ~lane_diverged(
             res_y, res_z, num.divergence_threshold)
+        # torch-lint: disable=trace-host-sync -- the one stopping read per iteration (any lane active)
         active, run = keep_going(go, t, max_iters)
         syncs += 1
         if not run:
             break
+        # torch-lint: disable=freeze-mask -- generators advance on stopped lanes by design: a stopped lane never resumes and keep() drops its update
         start = schedule(steps) * bs
         g = op.row_block_mvm(start, bs, v) - op._rows(bn, start, bs)
         # m <- rho m - (gamma / b) g on the full vector: outside the batch

@@ -15,6 +15,7 @@ runs its forward kernel's plain version on these CPU tensors, the reference
 its jitted tiles); decisions, retry hints, status codes, error texts,
 headers, versions and key sets equal.
 """
+import functools
 import json
 import os
 import sys
@@ -466,24 +467,38 @@ def test_predict_deadline_expired_is_504_like_reference(servers, fitted):
     assert errors[0] == errors[1] and errors[0][0] == 504
 
 
+def _pin_admission_clock(ctrl, now):
+    """Every token-bucket read of ``ctrl`` sees the instant ``now``: the
+    admission decisions and ``/stats``' bucket fill go through
+    ``admit(now=)`` and ``available(now=)``, which both packages take."""
+    ctrl.admit = functools.partial(ctrl.admit, now=now)
+    for lim in ctrl._limiters.values():
+        lim.available = (lambda _now=None, _read=lim.available:
+                         _read(now=now))
+
+
 def test_http_flood_sheds_429_like_reference(tmp_path, fitted):
-    """Burst 2 at a rate of one token per 1000 s (so no token refills while
-    the flood runs, however slow the host), an engine target: the same code
-    sequence, shed bodies and counts, a Retry-After of the same ~1000 s;
-    admin traffic is never rate-shed."""
+    """Burst 2 at a rate of one token per 1000 s, an engine target: the same
+    code sequence, shed bodies and counts, a Retry-After of the same ~1000
+    s; admin traffic is never rate-shed.
+
+    Both controllers' token buckets read one pinned clock, so no token
+    refills between the burst and the shed requests and the hint is
+    ``ceil(1 / rate)``, however slow the host (on the wall clock a stall of
+    more than 10 s took it below 990). The flood's handler threads are
+    joined before ``/stats`` is read: each counts its reply's status only
+    after writing the reply, so a read racing that thread could miss it."""
     results = {}
     for pkg, mod, model in (("reference", jc, fitted["jmodel"]),
                             ("port", tc, fitted["tmodel"])):
+        ctrl = mod.AdmissionController(buckets=(8,), rate_qps=1e-3, burst=2.0)
+        _pin_admission_clock(ctrl, now=time.monotonic())
         if pkg == "reference":
             engine = JEngine(model, buckets=(8,), bm=64, bn=64)
-            frontend = mod.ServeFrontend(
-                engine, mod.AdmissionController(buckets=(8,), rate_qps=1e-3,
-                                                burst=2.0))
+            frontend = mod.ServeFrontend(engine, ctrl)
         else:
             engine = BucketedEngine(model, buckets=(8,))
-            frontend = mod.ServeFrontend(
-                engine, mod.AdmissionController(buckets=(8,), rate_qps=1e-3,
-                                                burst=2.0), device="cpu")
+            frontend = mod.ServeFrontend(engine, ctrl, device="cpu")
         engine.warmup()
         httpd, _ = mod.start_http_server(frontend)
         url = f"http://127.0.0.1:{httpd.port}"
@@ -500,6 +515,7 @@ def test_http_flood_sheds_429_like_reference(tmp_path, fitted):
                     codes.append(e.code)
                     retry.append(e.headers.get("Retry-After"))
                     body = json.loads(e.read())
+            httpd._threads.join()
             _, stats = _http_json(url + "/stats")
             admin, _ = _http_json(url + "/predict", {"x": [[0.1, 0.2]],
                                                      "priority": "admin"})

@@ -836,3 +836,36 @@ def test_cuda_distributed_ap_tracks_its_residual():
         return (global_col_norms(rr) / bc.norm(dim=0)).max().item()
 
     assert relres(r2) < relres(r) < 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_matern_aliases_launch_the_kernels():
+    """The Matérn-3/2 compatibility names on the card: each launches its
+    CUDA kernel once and is bitwise equal to the ``kind="matern32"`` call
+    it aliases; the op against the CPU within 1e-5 of the largest output
+    (the kernels' fp32 bound)."""
+    _cuda_or_skip()
+    from repro_torch.kernels import ops
+
+    x, v, g = _draws(41, (300, 5), (300, 7), (300, 7))
+    params = _params(5, 42, "rbf")
+    dev = [torch.tensor(a, device="cuda") for a in (x, v, g)]
+    pdev = HyperParams(*(t.cuda() for t in params[:3]), kernel="rbf")
+    xd, vd, gd = dev
+    u = (xd / pdev.lengthscales).contiguous()
+    fwd, bwd = tiled.KERNEL_NAME, tiled.BWD_KERNEL_NAME
+    for kernel, alias, wrapped in (
+            (fwd, lambda: ops.matern_mvm(xd, xd, vd, pdev),
+             lambda: ops.kernel_mvm(xd, xd, vd, pdev, kind="matern32")),
+            (fwd, lambda: tiled.matern_mvm_pallas(u, u, vd),
+             lambda: tiled.kernel_mvm_cuda(u, u, vd, "matern32")),
+            (bwd, lambda: tiled.matern_mvm_bwd_pallas(u, u, gd, vd),
+             lambda: tiled.kernel_mvm_bwd_cuda(u, u, gd, vd, "matern32"))):
+        before = tiled.launch_counts()[kernel]
+        got = alias()
+        torch.cuda.synchronize()
+        assert tiled.launch_counts()[kernel] - before == 1
+        assert torch.equal(got, wrapped())
+    cpu = ops.matern_mvm(*map(torch.tensor, (x, x, v)), params)
+    got = ops.matern_mvm(xd, xd, vd, pdev).cpu()
+    assert (got - cpu).abs().max() <= 1e-5 * cpu.abs().max()

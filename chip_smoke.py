@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
-refresh, serve over HTTP.
+refresh, serve over HTTP, train the LM substrate.
 
     python3 chip_smoke.py
 
@@ -163,6 +163,24 @@ Phases, each printing JSON lines:
    against the unsharded run (iterations equal step for step, hypers
    within ``TOL_LANE_VS_SINGLE``), then the batch CLI with
    ``--shard-lanes`` over the cards it finds.
+
+13. lm (since the LM substrate's training slice), after the other phases
+   (it leaves the GP path's launch totals as they were: the LM path reaches
+   neither kernel, and its launch counts, set to 0 before it, stay 0): (a)
+   ``llama3-8b`` at its published widths (d_model 4096, 32/8 heads, d_ff
+   14 336, vocab 128 256, bf16 compute, remat) cut to 2 of its 32 layers,
+   3 Adam steps of ``make_train_step`` at train_4k's sequence of 4096 and a
+   global batch of 2 (of 256) as 2 microbatches of one row; (b)
+   ``mamba2-780m`` whole (48 layers, d_state 128, SSD chunk 256), 3 steps at
+   2 x 4096 in one batch; per step the loss (the first within
+   ``LM_LOSS0_WINDOW`` of ln(padded vocab) + s2 / 2, the loss of random
+   logits of the head's scale), seconds after a synchronise, tokens/s,
+   peak device memory and the model FLOP/s (6 N_active D over the step's
+   seconds) against ``PEAK_BF16_FLOPS``; each run's cuts on a ``reduced``
+   line; (c) every LM architecture's SMOKE config, 3 steps on the card and
+   on the CPU from the same params and batches, at fp32 and bf16 compute
+   (``TOL_LM``); (d) the train CLI's LM path, ``--arch llama3-8b --steps
+   2``, on the card.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -2814,6 +2832,239 @@ def _sharded_lanes(torch, tiled, x, y) -> tuple:
     return [counts, cli_counts], problems
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the LM substrate's models and training step
+# --------------------------------------------------------------------------
+LM_SEQ = 4096  # train_4k's sequence
+LM_ROWS = 2  # of train_4k's global batch of 256
+LM_STEPS = 3
+LM_FULL_RUNS = (
+    # (label, arch, layers kept or None for all, microbatches)
+    ("a_llama3_8b", "llama3-8b", 2, 2),
+    ("b_mamba2_780m", "mamba2-780m", None, 1),
+)
+# At random init the logits are about N(0, s2) with s2 the mean squared
+# norm of the head's columns (the final norm gives unit RMS), so the first
+# loss is near ln(padded vocab) + s2 / 2: 12.26 for llama3-8b's untied head
+# (s2 = 1), 11.14 for mamba2-780m's tied 0.02-scale embedding (s2 = 0.61).
+LM_LOSS0_WINDOW = 0.5
+# Card against CPU, 3 SMOKE steps from the same params and batches. fp32
+# (allow_tf32 off): each loss within 1e-5 relative, every parameter within
+# lr and all but 0.5 % of a model's within 1e-6. Adam moves an element by
+# up to about lr a step whatever its gradient's size, and where the first
+# moment is a near-cancellation of successive gradients (or the gradient is
+# at rounding level) the step's sign and size follow the rounding: such an
+# element may part by up to one step's movement (the CPU tests against the
+# reference hold lr / 3; on an H100 80GB HBM3 one jamba element parts from
+# the CPU's by 0.36 lr). bf16: each loss within 5e-3, every parameter within
+# 6 lr (three opposite steps), at most 10 % beyond 1e-4 (the CPU tests' bf16
+# bounds).
+LM_LR = 3e-4
+TOL_LM = {"float32": dict(loss=1e-5, tight=1e-6, loose=LM_LR, share=5e-3),
+          "bfloat16": dict(loss=5e-3, tight=1e-4, loose=6 * LM_LR,
+                           share=0.1)}
+
+
+def _lm_full_run(torch, label, arch, layers, microbatches, smi,
+                 device="cuda") -> dict:
+    """``LM_STEPS`` train steps of ``arch`` at its published widths on
+    ``LM_ROWS`` x ``LM_SEQ`` synthetic tokens on the card: per step the
+    loss, seconds after a synchronise, tokens/s, peak device memory and the
+    model FLOP/s (6 N_active D) against the card's bf16 peak."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import PEAK_BF16_FLOPS
+    from repro_torch.launch.train import lm_train_batch
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.train.adam import adam_init, tree_leaves
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    reduced = {"global_batch": [256, LM_ROWS]}
+    if layers is not None:
+        reduced = {"num_layers": [full.num_layers, layers], **reduced}
+    emit({"phase": "lm", "run": label, "arch": arch, "reduced": reduced,
+          "d_model": cfg.d_model, "num_layers": cfg.num_layers,
+          "vocab": cfg.padded_vocab, "seq_len": LM_SEQ, "rows": LM_ROWS,
+          "num_microbatches": microbatches, "compute_dtype": cfg.compute_dtype,
+          "remat": cfg.remat})
+    torch.cuda.empty_cache()  # what earlier phases left cached
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg)
+    opt = adam_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    head = params.get("lm_head", params["embed"].T)
+    s2 = float((head.double() ** 2).sum(0).mean())
+    expected0 = math.log(cfg.padded_vocab) + s2 / 2
+    step = make_train_step(cfg, num_microbatches=microbatches)
+    n_active = cfg.active_params_per_token_layers()
+    tokens = LM_ROWS * LM_SEQ
+    steps = []
+    for i in range(LM_STEPS):
+        batch = lm_train_batch(cfg, gen, LM_ROWS, LM_SEQ, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        flops = 6 * n_active * tokens / sec
+        rec = {"phase": "lm", "run": label, "step": i, "loss": loss,
+               "step_s": sec, "tokens_per_s": tokens / sec,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "model_flops_per_s": flops,
+               "model_flops_share": flops / PEAK_BF16_FLOPS}
+        steps.append(rec)
+        emit(rec)
+    batch = lm_train_batch(cfg, gen, LM_ROWS, LM_SEQ, device)
+    profile = _lm_profile_step(torch, step, params, opt, batch)
+    emit({"phase": "lm", "run": label, "profiled_step": profile})
+    leaves_finite = all(bool(torch.isfinite(v).all()) for v in
+                        tree_leaves(params))
+    loss0 = steps[0]["loss"]
+    summary = {"phase": "lm", "run": label, "init_s": init_s,
+               "n_active_params": n_active, "tokens_per_step": tokens,
+               "loss0": loss0, "ln_vocab": math.log(cfg.padded_vocab),
+               "head_col_sq_norm": s2, "expected_loss0": expected0,
+               "loss0_window": LM_LOSS0_WINDOW,
+               "params_finite": leaves_finite, "nvidia_smi": smi}
+    summary["ok"] = bool(
+        all(math.isfinite(r["loss"]) for r in steps) and leaves_finite
+        and abs(loss0 - expected0) < LM_LOSS0_WINDOW)
+    emit(summary)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _lm_profile_step(torch, step, params, opt, batch) -> dict:
+    """One more train step under ``torch.profiler`` (its result dropped):
+    wall seconds, the device's busy share and the top kernels by device
+    time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _lm_card_vs_cpu(torch, arch: str, compute: str, card="cuda") -> dict:
+    """``LM_STEPS`` SMOKE steps of ``arch`` on the card and on the CPU from
+    the same params and batches (made once on the CPU from a fixed
+    generator), at ``compute`` as the compute dtype."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKE_SHAPES, get_config
+    from repro_torch.launch.train import lm_train_batch
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.train.adam import adam_init, tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=compute)
+    gen = torch.Generator().manual_seed(0)
+    p0 = init_params(gen, cfg)
+    shape = SMOKE_SHAPES["train_4k"]
+    batches = [lm_train_batch(cfg, gen, shape.global_batch, shape.seq_len,
+                              "cpu") for _ in range(LM_STEPS)]
+    step = make_train_step(cfg)
+    runs = {}
+    for dev in (card, "cpu"):
+        params = _lm_to(p0, dev)
+        opt = adam_init(params)
+        losses = []
+        for b in batches:
+            params, opt, loss = step(params, opt,
+                                     {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(loss))
+        runs[dev] = (losses, {name: [v.cpu().double() for v in
+                                     tree_leaves(tree)]
+                              for name, tree in (("p", params),
+                                                 ("mu", opt.mu),
+                                                 ("nu", opt.nu))})
+    tol = TOL_LM[compute]
+    (card_l, card_t), (cpu_l, cpu_t) = runs[card], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    errs = [(a - b).abs() for a, b in zip(card_t["p"], cpu_t["p"])]
+    max_err = max(float(e.max()) for e in errs)
+    beyond = sum(int((e > tol["tight"]).sum()) for e in errs)
+    total = sum(e.numel() for e in errs)
+    # The element that parted most, with both runs' moments after the
+    # last step (leaves in tree_leaves order on both sides).
+    leaf = max(range(len(errs)), key=lambda i: float(errs[i].max()))
+    at = int(errs[leaf].argmax())
+    worst = {"leaf": leaf, "index": at, "p0": float(
+        tree_leaves(p0)[leaf].double().flatten()[at])}
+    for side, t in (("card", card_t), ("cpu", cpu_t)):
+        for name in ("p", "mu", "nu"):
+            worst[f"{side}_{name}"] = float(t[name][leaf].flatten()[at])
+    rec = {"phase": "lm", "run": "c_smoke_card_vs_cpu", "arch": arch,
+           "compute_dtype": compute, "card_losses": card_l,
+           "cpu_losses": cpu_l, "loss_rel_err": loss_rel,
+           "param_max_abs_err": max_err, "params_beyond_tight": beyond,
+           "params": total, "worst": worst, "tol": tol}
+    rec["ok"] = bool(all(math.isfinite(v) for v in card_l)
+                     and loss_rel <= tol["loss"] and max_err <= tol["loose"]
+                     and beyond <= tol["share"] * total)
+    emit(rec)
+    return rec
+
+
+def _lm_to(tree: dict, device) -> dict:
+    return {k: _lm_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_lm(torch, tiled, smi: str) -> None:
+    """Phase 13: the LM substrate on the card. (a) llama3-8b at its
+    published widths cut to 2 of 32 layers, (b) mamba2-780m whole, each 3
+    Adam steps at 2 x 4096 tokens (llama3 as 2 microbatches of one row);
+    (c) every LM architecture's SMOKE config, card against CPU at fp32 and
+    bf16; the train CLI's LM path once. The LM path reaches no kernel of
+    the port: both kernels' launch counts stay 0."""
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.train import main as train_main
+
+    tiled.reset_launch_counts()
+    bad = []
+    for label, arch, layers, micro in LM_FULL_RUNS:
+        rec = _lm_full_run(torch, label, arch, layers, micro, smi)
+        if not rec["ok"]:
+            bad.append(label)
+    for arch in LM_ARCHS:
+        for compute in ("float32", "bfloat16"):
+            if not _lm_card_vs_cpu(torch, arch, compute)["ok"]:
+                bad.append(f"c_{arch}_{compute}")
+    cli = train_main(["--arch", "llama3-8b", "--steps", "2"])
+    launches = tiled.launch_counts()
+    rec = {"phase": "lm", "run": "d_cli", "argv": "--arch llama3-8b --steps 2",
+           "losses": cli, "kernel_launches": launches}
+    rec["ok"] = bool(len(cli) == 2 and all(math.isfinite(v) for v in cli)
+                     and not any(launches.values()))
+    emit(rec)
+    if not rec["ok"]:
+        bad.append("d_cli")
+    if bad:
+        raise AssertionError(f"LM checks failed: {bad}")
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -2990,6 +3241,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("distributed")
     phase_s["distributed"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        phase_lm(torch, tiled, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("lm")
+    phase_s["lm"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)

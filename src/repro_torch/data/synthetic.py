@@ -5,6 +5,7 @@ Port of ``repro.data.synthetic``. A real UCI CSV in ``data/uci/<name>.csv``
 RFF Matérn-3/2 prior sample at the dataset's exact shape, from a seeded
 ``torch.Generator`` (the numbers differ from the reference's JAX draws).
 Inputs and targets are z-scored on a deterministic 90/10 split.
+``make_lm_batch`` draws the LM substrate's synthetic token batches.
 """
 from __future__ import annotations
 
@@ -142,3 +143,21 @@ def pad_to_block_multiple(x: torch.Tensor, y: torch.Tensor, block: int,
     x_pad = torch.cat([x, offsets[:, None].expand(rem, d)])
     y_pad = torch.cat([y, torch.zeros((rem,), dtype=y.dtype, device=y.device)])
     return x_pad, y_pad, n
+
+
+def make_lm_batch(generator: torch.Generator, batch: int, seq_len: int,
+                  vocab: int, device="cuda") -> dict:
+    """Synthetic LM token batch: inputs + next-token labels + mask.
+
+    Tokens are drawn uniformly from ``[0, vocab)`` on ``generator``'s device
+    and placed on ``device`` (int64, the port's index type; the model also
+    takes the reference's int32 ids).
+    """
+    dev = resolve_device(device)
+    tokens = torch.randint(0, vocab, (batch, seq_len + 1), generator=generator,
+                           device=generator.device, dtype=torch.int64).to(dev)
+    return {
+        "tokens": tokens[:, :-1],
+        "labels": tokens[:, 1:],
+        "mask": torch.ones((batch, seq_len), dtype=torch.float32, device=dev),
+    }

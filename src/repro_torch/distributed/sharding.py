@@ -19,8 +19,11 @@ hold copies of one shard. A value that the reference keeps replicated (the
 hyperparameters, a reduction over rows) is one tensor on the mesh's first
 device here, moved to a piece's device where the two meet.
 
-The LM's sharding policy (``constrain``, ``named_sharding``, ``DP`` /
-``FSDP`` / ``TP``, ``batch_spec``) goes with the LM substrate.
+The LM substrate's models and training step (``repro_torch.models``) run
+on one card and use none of this. The LM's sharding policy
+(``constrain``, ``named_sharding``, ``DP`` / ``FSDP`` / ``TP``,
+``batch_spec``) is not ported yet: it comes with the dry-run accounting,
+after LM decoding.
 """
 from __future__ import annotations
 

@@ -49,6 +49,12 @@ reference's ``fit(ckpt_dir=...)`` wrote. Its leaves are those of
 
 The kernel name is static in the reference (not a leaf), so the caller
 names it.
+
+``lm_params_from_numpy`` (and ``lm_params_to_numpy``, its inverse) carry
+the LM substrate's parameter tree, a nested dict of arrays in the
+reference's layout (``jax.tree.map(np.asarray, init_params(...))``);
+``lm_adam_from_numpy`` / ``lm_adam_to_numpy`` its ``AdamState`` as
+``{"step", "mu": <params-like>, "nu": <params-like>}``.
 """
 from __future__ import annotations
 
@@ -210,3 +216,32 @@ def outer_state_from_checkpoint(npz_path: str, kernel: str = "matern32",
          "adam": {"step": leaves[3], "mu": params(4), "nu": params(7)},
          "probes": probes, "carry_v": leaves[-7], "step": leaves[-5]},
         device=device)
+
+
+def lm_params_from_numpy(tree: dict, device="cpu") -> dict:
+    """An LM parameter tree of numpy arrays as tensors on ``device``
+    (dtype kept, values bit for bit)."""
+    return {k: lm_params_from_numpy(v, device) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v)).to(device)
+            for k, v in tree.items()}
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`lm_params_from_numpy` (arrays on the host)."""
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def lm_adam_from_numpy(tree: dict, device="cpu") -> AdamState:
+    """The reference's LM ``AdamState`` (``{"step", "mu", "nu"}``) as the
+    port's."""
+    return AdamState(step=_step(tree["step"]),
+                     mu=lm_params_from_numpy(tree["mu"], device),
+                     nu=lm_params_from_numpy(tree["nu"], device))
+
+
+def lm_adam_to_numpy(state: AdamState) -> dict:
+    """The inverse of :func:`lm_adam_from_numpy`."""
+    return {"step": np.asarray(state.step, dtype=np.int32),
+            "mu": lm_params_to_numpy(state.mu),
+            "nu": lm_params_to_numpy(state.nu)}

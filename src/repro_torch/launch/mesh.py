@@ -15,8 +15,11 @@ and raise when the shape needs more than are visible: there is no silent
 CPU mesh and no silent repetition. Functions, not module-level constants:
 importing this module touches no device.
 
-``make_production_mesh`` (the 256- and 512-chip meshes of the dry-run)
-goes with the LM substrate and its dry-run accounting.
+The LM substrate's training step (``repro_torch.models``) runs on one card
+without a mesh; its model-FLOP share is taken against
+:data:`PEAK_BF16_FLOPS`. ``make_production_mesh`` (the 256- and 512-chip
+meshes of the dry-run) is not ported yet: it comes with the dry-run
+accounting, after LM decoding.
 """
 from __future__ import annotations
 

@@ -1,10 +1,14 @@
-"""CLI training driver of the port: the GP path of ``repro.launch.train``.
+"""CLI training driver of the port; port of ``repro.launch.train``.
+
+Two paths behind one entry point:
 
     python -m repro_torch.launch.train --arch gp-iterative --dataset pol \\
         --pathwise --warm-start --steps 20 --eval-every 10
 
     python -m repro_torch.launch.train --solver ap --pathwise --warm-start \
         --budget 10 --max-n 0
+
+    python -m repro_torch.launch.train --arch llama3-8b --steps 5
 
 Fits the dataset with CG (rank ``--precond-rank`` pivoted-Cholesky
 preconditioner), AP (``--block-size``) or SGD (``--batch-size``, learning
@@ -15,7 +19,14 @@ reference's JSON summary (and writes it to ``--out``). For AP and SGD the
 training rows are padded with phantom points to a multiple of the block.
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
 cpu`` runs the plain PyTorch versions. ``--max-n 0`` trains on the full
-dataset. The LM architectures are not ported yet and raise.
+dataset.
+
+Any other ``--arch`` is an LM architecture of ``repro_torch.configs``
+(an unknown name raises ``KeyError``): its reduced SMOKE config trains for
+``--steps`` Adam steps on synthetic tokens at ``SMOKE_SHAPES["train_4k"]``
+(whisper on random frames with its decoder-length text, internvl2 with a
+random patch prefix), printing ``[train-lm] <arch> step <i>: loss=<x>``
+as the reference does.
 """
 from __future__ import annotations
 
@@ -27,12 +38,16 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.configs import SMOKE_SHAPES, get_config
 from repro_torch.core.driver import FitResult, fit, pick_sgd_learning_rate
 from repro_torch.core.outer import OuterConfig
-from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
+from repro_torch.data.synthetic import (load_dataset, make_lm_batch,
+                                        pad_to_block_multiple)
+from repro_torch.device import resolve_device
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.models import init_params, make_train_step
 from repro_torch.solvers import SolverConfig
-from repro_torch.train.adam import AdamConfig
+from repro_torch.train.adam import AdamConfig, adam_init
 
 
 class GPRun(NamedTuple):
@@ -102,6 +117,49 @@ def run_gp(args) -> GPRun:
     return GPRun(summary=out, fit=res, cfg=cfg, lr_trials=trials)
 
 
+def lm_train_batch(cfg, gen: torch.Generator, rows: int, seq: int,
+                   device) -> dict:
+    """One synthetic train batch of ``cfg``'s inputs, as the reference's
+    ``run_lm`` builds it: ``make_lm_batch`` tokens; for an encoder-decoder,
+    random (rows, seq, d_model) frames and the text cut to
+    ``cfg.decoder_len``; for a vision prefix, random patch embeddings."""
+    batch = make_lm_batch(gen, rows, seq, cfg.vocab_size, device=device)
+    if cfg.is_encdec:
+        return {
+            "frames": torch.randn((rows, seq, cfg.d_model), generator=gen,
+                                  device=gen.device).to(device),
+            "tokens": batch["tokens"][:, : cfg.decoder_len],
+            "labels": batch["labels"][:, : cfg.decoder_len],
+            "mask": batch["mask"][:, : cfg.decoder_len],
+        }
+    if cfg.frontend.kind == "vision":
+        batch["patch_embeds"] = torch.randn(
+            (rows, cfg.frontend.num_prefix, cfg.frontend.embed_dim),
+            generator=gen, device=gen.device).to(device)
+    return batch
+
+
+def run_lm(args) -> list:
+    """Train the SMOKE config of ``args.arch`` for ``args.steps`` steps, one
+    fresh synthetic batch a step; prints and returns the losses."""
+    cfg = get_config(args.arch, smoke=True)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(gen, cfg)
+    opt = adam_init(params)
+    step = make_train_step(cfg, num_microbatches=1)
+    shape = SMOKE_SHAPES["train_4k"]
+    losses = []
+    for i in range(args.steps):
+        batch = lm_train_batch(cfg, gen, shape.global_batch, shape.seq_len,
+                               dev)
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        print(f"[train-lm] {args.arch} step {i}: loss={losses[-1]:.4f}",
+              flush=True)
+    return losses
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags and defaults, plus ``--device``."""
     ap = argparse.ArgumentParser(
@@ -138,13 +196,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """CLI entry: parse flags and run the GP path."""
+    """CLI entry: parse flags and run the GP path or an LM architecture's."""
     args = build_parser().parse_args(argv)
-    if args.arch != "gp-iterative":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the LM substrate is not ported yet "
-            "(ROADMAP Queue 1, LM substrate); use --arch gp-iterative")
-    run_gp(args)
+    if args.arch == "gp-iterative":
+        return run_gp(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,252 @@
+"""Transformer building blocks shared by the 10 assigned architectures, train
+half; port of ``repro.models.layers``.
+
+Pure functions over nested-dict parameter trees (fp32 storage, compute in
+``cfg.compute_dtype``). Each block casts where the reference casts: the
+block input to the compute dtype, weights at each use, RMS norms and the
+MoE router in fp32, attention scores in fp32 from compute-dtype operands
+(the reference's ``preferred_element_type=float32``; upcasting ``q`` and
+``k`` gives the same products), probabilities back to ``v``'s dtype.
+
+The reference's ``constrain`` / ``_tp_size`` are placement hints for a
+device mesh; the single-card port has no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import (
+    ATTN_BIDIR,
+    ATTN_CHUNKED,
+    ATTN_SWA,
+    LayerSpec,
+    ModelConfig,
+)
+
+NEG_INF = -1e30
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The activations' dtype: bf16 when ``cfg.compute_dtype`` says so."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _to_compute(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``x.astype(bf16) if compute is bf16 else x``."""
+    return x.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" else x
+
+
+# --------------------------------------------------------------------------
+# Normalisation, positions
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """RMS norm in fp32 with a ``1 + scale`` gain, cast back to x's dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=x.device), exponent)
+    angles = positions[..., None].float() * freq  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.split(x.float(), half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(seq_len, dim) absolute positions: [sin | cos] of pos / 1e4^(2i/dim)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / torch.pow(torch.tensor(10_000.0, device=device),
+                             2.0 * i / dim)
+    emb = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+    return emb.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def _attn_mask(seq_len: int, kind: str, window: int, dtype=torch.float32,
+               device=None) -> Optional[torch.Tensor]:
+    """(S, S) additive mask for the train path (None = no masking)."""
+    if kind == ATTN_BIDIR:
+        return None
+    i = torch.arange(seq_len, device=device)[:, None]
+    j = torch.arange(seq_len, device=device)[None, :]
+    allowed = j <= i  # causal
+    if kind == ATTN_SWA and window > 0:
+        allowed &= (i - j) < window
+    elif kind == ATTN_CHUNKED and window > 0:
+        allowed &= (i // window) == (j // window)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(allowed, zero, torch.full((), NEG_INF, dtype=dtype,
+                                                 device=device))
+
+
+def _gqa_scores_and_out(q, k, v, mask, scale):
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd). Returns (B,S,H,hd).
+
+    Scores are fp32 from fp32 copies of q and k (exact products of bf16
+    operands), as the reference's fp32-accumulated einsum; probabilities
+    are cast to ``v``'s dtype before the second product.
+    """
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.float().reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4)  # b k g s d
+    kt = k.float().permute(0, 2, 3, 1)[:, :, None]  # b k 1 d t
+    scores = torch.matmul(qg, kt) * scale  # (B,KV,G,S,T) fp32
+    if mask is not None:
+        scores = scores + mask  # mask broadcasts over (b, kv, g)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    vt = v.permute(0, 2, 1, 3)[:, :, None]  # b k 1 t d
+    out = torch.matmul(probs, vt)  # (B,KV,G,S,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+
+
+def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    spec: LayerSpec, positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence (GQA) attention; x: (B, S, D)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xc = _to_compute(x, cfg)
+
+    def w(name):
+        return params[name].to(xc.dtype)
+
+    q = xc @ w("wq")
+    k = xc @ w("wk")
+    v = xc @ w("wv")
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    mask = _attn_mask(s, spec.kind, spec.window, dtype=torch.float32,
+                      device=x.device)
+    out = _gqa_scores_and_out(q, k, v, mask, 1.0 / math.sqrt(hd))
+    out = out.reshape(b, s, h * hd)
+    return (out @ w("wo")).to(x.dtype)
+
+
+def cross_attention_train(params: dict, x: torch.Tensor, enc: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention (whisper); x: (B,S,D), enc: (B,T,D)."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xc = _to_compute(x, cfg)
+    ec = enc.to(xc.dtype)
+
+    def w(name):
+        return params[name].to(xc.dtype)
+
+    q = (xc @ w("wq")).reshape(b, s, h, hd)
+    k = (ec @ w("wk")).reshape(b, t, kv, hd)
+    v = (ec @ w("wv")).reshape(b, t, kv, hd)
+    out = _gqa_scores_and_out(q, k, v, None, 1.0 / math.sqrt(hd))
+    return (out.reshape(b, s, h * hd) @ w("wo")).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# FFN: dense + MoE
+# --------------------------------------------------------------------------
+def _ffn_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """x: (..., D) -> (..., D), weights fetched from p (fp32->compute dtype).
+
+    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    def w(name):
+        return p[name].to(x.dtype)
+
+    if activation == "swiglu":
+        g = F.silu(x @ w("wi_gate"))
+        u = x @ w("wi_up")
+        return (g * u) @ w("wo")
+    hid = F.gelu(x @ w("wi"), approximate="tanh")
+    return hid @ w("wo")
+
+
+def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense FFN in the compute dtype, cast back to x's dtype."""
+    return _ffn_apply(params, _to_compute(x, cfg), cfg.mlp_activation).to(
+        x.dtype)
+
+
+def top_k_ordered(values: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, ties
+    broken towards the lower index (XLA's TopK order; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE with static per-expert capacity (loop-over-experts dispatch).
+
+    Each expert gathers its top-C tokens by combine weight and scatter-adds
+    its output. Capacity C = ceil(S * top_k * cf / E); lower-weight overflow
+    tokens are dropped, and among equal weights (every routed token weighs
+    1.0 under top-1) the later positions go first, as in the reference.
+    Expert FFN weights are stacked (E, D, F).
+    """
+    moe = cfg.moe
+    b, s, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    xc = _to_compute(x, cfg)
+
+    router_logits = xc.float() @ params["router"].float()  # (B,S,E) fp32
+    probs = torch.softmax(router_logits, dim=-1)
+    top_vals, top_idx = top_k_ordered(probs, k)  # (B,S,k)
+    top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+
+    # Per-expert combine weight (B,S): sum of top-k weights routed to e.
+    onehot = F.one_hot(top_idx, e).float()  # (B,S,k,E)
+    combine = torch.einsum("bske,bsk->bse", onehot, top_vals)  # (B,S,E)
+
+    cap = max(1, int(math.ceil(s * k * moe.capacity_factor / e)))
+    cap = min(cap, s)
+    batch_ix = torch.arange(b, device=x.device)[:, None]
+    outs, idxs = [], []
+    for ei in range(e):
+        scores, idx = top_k_ordered(combine[:, :, ei], cap)  # (B,C)
+        xg = torch.gather(xc, 1, idx[:, :, None].expand(b, cap, d))  # (B,C,D)
+        pe = {key: params[key][ei] for key in params
+              if key.startswith("wi") or key == "wo"}
+        out = _ffn_apply(pe, xg, cfg.mlp_activation)  # (B,C,D)
+        outs.append(out * scores[:, :, None].to(out.dtype))
+        idxs.append(idx)
+    y = torch.zeros((b, s, d), dtype=xc.dtype, device=x.device)
+    if cfg.moe_single_scatter:
+        # One combined scatter-add over all experts' outputs.
+        all_out = torch.cat(outs, dim=1)  # (B, E*C, D)
+        all_idx = torch.cat(idxs, dim=1)  # (B, E*C)
+        y = torch.index_put(y, (batch_ix, all_idx), all_out, accumulate=True)
+    else:  # naive per-expert combine (the reference's A/B baseline)
+        for out, idx in zip(outs, idxs):
+            y = torch.index_put(y, (batch_ix, idx), out, accumulate=True)
+    if moe.shared_expert:
+        shared = {key[7:]: params[key] for key in params
+                  if key.startswith("shared_")}
+        y = y + _ffn_apply(shared, xc, cfg.mlp_activation)
+    return y.to(x.dtype)

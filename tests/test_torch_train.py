@@ -3,9 +3,11 @@ pivoted Cholesky and the preconditioner (every kernel, ``AUTO_RANK``
 included), preconditioned CG, outer steps without warm starting (the
 reference's per-step probe draws handed over), evaluation, checkpoints
 (resume, and a reference checkpoint read through ``interop``), and the
-train CLI on the CPU. Inputs are numpy draws from fixed seeds."""
+train CLI on the CPU (the GP path; an LM architecture's SMOKE path and an
+unknown architecture). Inputs are numpy draws from fixed seeds."""
 import ast
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -342,6 +344,34 @@ def test_train_cli_on_cpu_prints_reference_keys(capsys, tmp_path):
     assert json.loads(out_file.read_text()) == out
 
 
-def test_train_cli_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="LM substrate"):
-        ttrain.main(["--device", "cpu", "--arch", "llama3-8b"])
+def _reference_lm_line_parts():
+    """The literal parts and the loss's format spec of the line the
+    reference's ``run_lm`` prints."""
+    tree = ast.parse((REPO / "src/repro/launch/train.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_lm")
+    line = next(n for n in ast.walk(fn) if isinstance(n, ast.JoinedStr))
+    literals = [v.value for v in line.values if isinstance(v, ast.Constant)]
+    specs = [v.format_spec.values[0].value for v in line.values
+             if isinstance(v, ast.FormattedValue) and v.format_spec]
+    return literals, specs
+
+
+def test_train_cli_lm_arch_prints_reference_lines(capsys):
+    """``--arch llama3-8b --steps 2`` on the CPU trains the SMOKE config and
+    prints two finite losses in the reference's ``[train-lm]`` format."""
+    ttrain.main(["--device", "cpu", "--arch", "llama3-8b", "--steps", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    literals, specs = _reference_lm_line_parts()
+    assert literals == ["[train-lm] ", " step ", ": loss="] and specs == [".4f"]
+    pattern = re.compile(r"\[train-lm\] llama3-8b step (\d+): loss=(\S+)$")
+    found = [pattern.match(line) for line in lines]
+    assert all(found) and [int(m.group(1)) for m in found] == [0, 1]
+    losses = [float(m.group(2)) for m in found]
+    assert np.all(np.isfinite(losses))
+    assert all(m.group(2) == f"{v:.4f}" for m, v in zip(found, losses))
+
+
+def test_train_cli_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="unknown arch"):
+        ttrain.main(["--device", "cpu", "--arch", "llama5"])

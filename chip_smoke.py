@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
-refresh, serve over HTTP, train the LM substrate.
+refresh, serve over HTTP, train the LM substrate and decode from it.
 
     python3 chip_smoke.py
 
@@ -181,6 +181,27 @@ Phases, each printing JSON lines:
    on the CPU from the same params and batches, at fp32 and bf16 compute
    (``TOL_LM``); (d) the train CLI's LM path, ``--arch llama3-8b --steps
    2``, on the card.
+
+14. lm_decode (since the LM decoding slice), after lm, its launch counts
+   set to 0 before it and held at 0: greedy decoding through
+   ``make_serve_step`` against a bf16 cache updated in place, (a)
+   ``llama3-8b`` at its published widths cut to 2 of 32 layers at
+   decode_32k (128 rows, 32 768 slots); (b) ``mamba2-780m`` whole at
+   decode_32k; (c) ``gemma3-4b`` at its published widths cut to one of its
+   two 17-layer periods (14 SWA layers whose caches are 1024-slot ring
+   buffers, 3 global) at long_500k (1 row, 524 288 slots). Each: 16 timed
+   steps after 2 warm-up steps (step seconds, tokens/s, peak device
+   memory), the bound (parameters as stored plus the whole cache, read
+   once, over 3.35 TB/s; every step attends to all slots, so it does not
+   depend on the position) and bound / measured, one profiled step; then,
+   at fp32 compute and cache, decode equals ``forward_lm`` within
+   ``TOL_DECODE_INVARIANT`` at full width ((a) 2 x 64 tokens, (b) 1 x 512,
+   two SSD chunks, (c) 1 x 1040 with 1040 slots, so the rings wrap). (d)
+   The ten SMOKE configs, 24 teacher-forced steps on the card and on the
+   CPU from the same params, at fp32 (each its own cache) and bf16 (each
+   step from the CPU's cache), held to the CPU tests' bounds
+   (``TOL_DECODE``). (e) The serve CLI once: ``--arch llama3-8b --tokens
+   8``.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -2923,7 +2944,7 @@ def _lm_full_run(torch, label, arch, layers, microbatches, smi,
         steps.append(rec)
         emit(rec)
     batch = lm_train_batch(cfg, gen, LM_ROWS, LM_SEQ, device)
-    profile = _lm_profile_step(torch, step, params, opt, batch)
+    profile = _lm_profile_step(torch, lambda: step(params, opt, batch))
     emit({"phase": "lm", "run": label, "profiled_step": profile})
     leaves_finite = all(bool(torch.isfinite(v).all()) for v in
                         tree_leaves(params))
@@ -2943,16 +2964,16 @@ def _lm_full_run(torch, label, arch, layers, microbatches, smi,
     return summary
 
 
-def _lm_profile_step(torch, step, params, opt, batch) -> dict:
-    """One more train step under ``torch.profiler`` (its result dropped):
-    wall seconds, the device's busy share and the top kernels by device
-    time."""
+def _lm_profile_step(torch, call) -> dict:
+    """One more step, ``call()``, under ``torch.profiler`` (its result
+    dropped): wall seconds, the device's busy share and the top kernels by
+    device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(params, opt, batch)
+        call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -3028,8 +3049,9 @@ def _lm_card_vs_cpu(torch, arch: str, compute: str, card="cuda") -> dict:
 
 
 def _lm_to(tree: dict, device) -> dict:
-    return {k: _lm_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of ``tree`` on ``device``, even where it already is there."""
+    return {k: _lm_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 def phase_lm(torch, tiled, smi: str) -> None:
@@ -3063,6 +3085,277 @@ def phase_lm(torch, tiled, smi: str) -> None:
         bad.append("d_cli")
     if bad:
         raise AssertionError(f"LM checks failed: {bad}")
+
+
+# --------------------------------------------------------------------------
+# Phase 14: LM decoding
+# --------------------------------------------------------------------------
+DECODE_WARMUP = 2
+DECODE_STEPS = 16
+DECODE_RUNS = (
+    # (label, arch, layers kept or None for all, shape, invariant rows x
+    # tokens)
+    ("a_llama3_8b", "llama3-8b", 2, "decode_32k", (2, 64)),
+    ("b_mamba2_780m", "mamba2-780m", None, "decode_32k", (1, 512)),
+    ("c_gemma3_4b", "gemma3-4b", 17, "long_500k", (1, 1040)),
+)
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published memory rate
+# Decode against the port's own forward at full width, fp32 compute and
+# cache (the reference's invariant bound, tests/test_archs_smoke.py).
+TOL_DECODE_INVARIANT = 1e-3
+# Card against CPU, the CPU tests' bounds (tests/test_torch_lm_decode.py):
+# fp32, each device its own cache for 24 steps: logits within 1e-5 x
+# max(1, max |cpu|), every cache leaf within 1e-5 x max(1, its max); bf16,
+# each step from the CPU's cache: per (step, row) logits within 2^-4 x
+# max |cpu|, bf16 cache leaves within 8 bf16 ulps of their largest value
+# and the fp32 SSM state within 32, a MoE config's rows allowed beyond on
+# 1/8 of (step, row) pairs (a router near-tie can pick another expert).
+TOL_DECODE = {"logits": 1e-5, "cache": 1e-5, "bf16_logits": 2.0 ** -4,
+              "bf16_ulps": 8, "bf16_state_ulps": 32, "moe_share": 1 / 8}
+DECODE_SMOKE = dict(rows=2, max_len=32, steps=24, enc_len=16)
+
+
+def _sync_dev(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tree_bytes(torch, tree: dict) -> int:
+    from repro_torch.train.adam import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _greedy(torch, serve, params, cfg, cache, toks, positions):
+    """Greedy steps at ``positions``; tokens stay on the device."""
+    for pos in positions:
+        logits, cache = serve(params, cache, toks, pos)
+        toks = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(
+            torch.int32)
+    return toks
+
+
+def _decode_invariant(torch, params, cfg, rows, tokens, device) -> float:
+    """Max |decode logits - forward_lm logits| over ``tokens`` steps of
+    ``rows`` random rows, fp32 compute and cache."""
+    import dataclasses
+
+    from repro_torch.models import forward_lm, init_cache, make_serve_step
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (rows, tokens), generator=gen,
+                         device=device)
+    with torch.no_grad():
+        ref = forward_lm(params, cfg32, toks)
+    cache = init_cache(cfg32, rows, tokens, dtype=torch.float32,
+                       device=device)
+    serve = make_serve_step(cfg32)
+    errs = []
+    for t in range(tokens):
+        logits, cache = serve(params, cache, toks[:, t], t)
+        errs.append((logits - ref[:, t]).abs().max())
+    return float(torch.stack(errs).max())
+
+
+def _lm_decode_run(torch, label, cfg, shape, inv, smi, device="cuda",
+                   reduced=None) -> dict:
+    """Greedy decoding of ``cfg`` (random weights) at ``shape``'s rows and
+    slots: ``DECODE_STEPS`` timed steps after ``DECODE_WARMUP``, the bound,
+    a profiled step (on the card), then the fp32 invariant at ``inv``."""
+    from repro_torch.models import init_cache, init_params, make_serve_step
+
+    rows, slots = shape.global_batch, shape.seq_len
+    emit({"phase": "lm_decode", "run": label, "arch": cfg.name,
+          "reduced": reduced or {}, "shape": shape.name, "rows": rows,
+          "slots": slots, "num_layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.padded_vocab,
+          "compute_dtype": cfg.compute_dtype, "cache_dtype": "bfloat16"})
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(gen, cfg)
+    cache = init_cache(cfg, rows, slots, device=device)
+    param_bytes = _tree_bytes(torch, params)
+    cache_bytes = _tree_bytes(torch, cache)
+    serve = make_serve_step(cfg)
+    toks = torch.zeros((rows,), dtype=torch.int32, device=device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    toks = _greedy(torch, serve, params, cfg, cache, toks,
+                   range(DECODE_WARMUP))
+    _sync_dev(torch, device)
+    t0 = time.perf_counter()
+    toks = _greedy(torch, serve, params, cfg, cache, toks,
+                   range(DECODE_WARMUP, DECODE_WARMUP + DECODE_STEPS))
+    _sync_dev(torch, device)
+    step_s = (time.perf_counter() - t0) / DECODE_STEPS
+    bound_s = (param_bytes + cache_bytes) / HBM_BYTES_PER_S
+    rec = {"phase": "lm_decode", "run": label, "step_s": step_s,
+           "tokens_per_s": rows / step_s,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if on_card else None),
+           "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+           "bound_ms": bound_s * 1e3, "bound_tokens_per_s": rows / bound_s,
+           "bound_share": bound_s / step_s,
+           "tokens_in_vocab": bool(((toks >= 0)
+                                    & (toks < cfg.vocab_size)).all()),
+           "nvidia_smi": smi}
+    if on_card:
+        pos = DECODE_WARMUP + DECODE_STEPS
+        rec["profiled_step"] = _lm_profile_step(
+            torch, lambda: serve(params, cache, toks, pos))
+    emit(rec)
+    del cache
+    if on_card:
+        torch.cuda.empty_cache()
+    err = _decode_invariant(torch, params, cfg, inv[0], inv[1], device)
+    inv_rec = {"phase": "lm_decode", "run": label, "invariant_rows": inv[0],
+               "invariant_tokens": inv[1], "decode_vs_forward_max_abs": err,
+               "tol": TOL_DECODE_INVARIANT}
+    inv_rec["ok"] = bool(rec["tokens_in_vocab"] and math.isfinite(err)
+                         and err <= TOL_DECODE_INVARIANT)
+    emit(inv_rec)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return inv_rec
+
+
+def _cache_rows_beyond(torch, got: dict, want: dict, rows: int, tol) -> tuple:
+    """(per-row bool beyond the bound, worst value) of every cache leaf of
+    ``got`` against ``want`` (both on the CPU): within ``tol["ulps"]`` bf16
+    ulps of the leaf's largest value (``tol["state_ulps"]`` for an fp32
+    leaf), or else ``tol["cache"]`` x max(1, leaf max); the worst as a
+    share of the bound."""
+    from repro_torch.train.adam import tree_leaves
+
+    bad = torch.zeros(rows, dtype=torch.bool)
+    worst = 0.0
+    for a, b in zip(tree_leaves(want), tree_leaves(got)):
+        top = float(a.abs().max())
+        if "ulps" in tol:
+            ulps = tol["ulps" if b.dtype == torch.bfloat16 else "state_ulps"]
+            limit = ulps * 2.0 ** (
+                math.floor(math.log2(max(top, 2.0 ** -126))) - 7)
+        else:
+            limit = tol["cache"] * max(1.0, top)
+        diff = (a.double() - b.double()).abs().transpose(0, 1).reshape(
+            rows, -1).amax(1)
+        bad |= diff > limit
+        worst = max(worst, float(diff.max()) / limit)
+    return bad, worst
+
+
+def _lm_decode_card_vs_cpu(torch, arch: str, compute: str,
+                           card="cuda") -> dict:
+    """``DECODE_SMOKE`` teacher-forced SMOKE steps of ``arch`` on the card
+    and on the CPU from the same params (and whisper's frames), at
+    ``compute`` with a cache of the same dtype; at bf16 every card step
+    starts from the CPU's cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params, make_serve_step
+    from repro_torch.models.transformer import prefill_cross_cache
+
+    sm = DECODE_SMOKE
+    rows, steps = sm["rows"], sm["steps"]
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=compute)
+    dtype = getattr(torch, compute)
+    gen = torch.Generator().manual_seed(0)
+    p0 = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (steps, rows), generator=gen)
+    enc = sm["enc_len"] if cfg.is_encdec else 0
+    frames = torch.randn((rows, enc, cfg.d_model), generator=gen) * 0.3
+    serve = make_serve_step(cfg)
+    params, caches = {}, {}
+    for side, dev in (("card", card), ("cpu", "cpu")):
+        params[side] = _lm_to(p0, dev)
+        caches[side] = init_cache(cfg, rows, sm["max_len"], enc_len=enc,
+                                  dtype=dtype, device=dev)
+        if enc:
+            prefill_cross_cache(params[side], cfg, frames.to(dev),
+                                caches[side])
+    bf16 = compute == "bfloat16"
+    tol = ({"ulps": TOL_DECODE["bf16_ulps"],
+            "state_ulps": TOL_DECODE["bf16_state_ulps"]} if bf16
+           else {"cache": TOL_DECODE["cache"]})
+    beyond, worst_logit, worst_cache = 0, 0.0, 0.0
+    finite = True
+    for t in range(steps):
+        if bf16:
+            caches["card"] = _lm_to(caches["cpu"], card)
+        want, _ = serve(params["cpu"], caches["cpu"], toks[t], t)
+        got, _ = serve(params["card"], caches["card"], toks[t].to(card), t)
+        got = got.cpu()
+        finite &= bool(torch.isfinite(got).all())
+        scale = (float(want.abs().max()) if bf16
+                 else max(1.0, float(want.abs().max())))
+        row_err = (got - want).abs().amax(-1) / scale
+        bad_cache, w = _cache_rows_beyond(torch, _lm_to(caches["card"], "cpu"),
+                                          caches["cpu"], rows, tol)
+        limit = TOL_DECODE["bf16_logits" if bf16 else "logits"]
+        bad = (row_err > limit) | bad_cache
+        beyond += int(bad.sum())
+        worst_logit = max(worst_logit, float(row_err.max()))
+        worst_cache = max(worst_cache, w)
+    allowed = (TOL_DECODE["moe_share"] * steps * rows
+               if bf16 and cfg.moe is not None else 0)
+    rec = {"phase": "lm_decode", "run": "d_smoke_card_vs_cpu", "arch": arch,
+           "compute_dtype": compute, "steps": steps,
+           "worst_logit_rel": worst_logit,
+           "worst_cache": worst_cache,
+           "worst_cache_unit": "share of the bound",
+           "rows_beyond": beyond, "rows_allowed": allowed,
+           "tol": TOL_DECODE}
+    rec["ok"] = bool(finite and beyond <= allowed)
+    emit(rec)
+    return rec
+
+
+def phase_lm_decode(torch, tiled, smi: str) -> None:
+    """Phase 14: LM decoding on the card, (a)-(e) of the module docstring.
+    The LM path reaches no kernel of the port: both kernels' launch counts,
+    set to 0 before it, stay 0."""
+    import dataclasses
+
+    from repro_torch.configs import LM_ARCHS, get_config, runnable_cells
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.launch.serve import main as serve_main
+
+    tiled.reset_launch_counts()
+    bad = []
+    cells = {(a, s): st for a, s, st in runnable_cells(include_skips=True)}
+    for label, arch, layers, shape, inv in DECODE_RUNS:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        reduced = ({} if layers is None
+                   else {"num_layers": [full.num_layers, layers]})
+        if cells.get((arch, shape)) != "run":
+            bad.append(f"{label}: runnable_cells has {cells.get((arch, shape))}")
+        if not _lm_decode_run(torch, label, cfg, LM_SHAPES[shape], inv, smi,
+                              reduced=reduced)["ok"]:
+            bad.append(label)
+    for arch in LM_ARCHS:
+        for compute in ("float32", "bfloat16"):
+            if not _lm_decode_card_vs_cpu(torch, arch, compute)["ok"]:
+                bad.append(f"d_{arch}_{compute}")
+    argv = ["--arch", "llama3-8b", "--tokens", "8"]
+    tokens = serve_main(argv)
+    launches = tiled.launch_counts()
+    rec = {"phase": "lm_decode", "run": "e_cli", "argv": " ".join(argv),
+           "tokens": tokens.tolist(), "kernel_launches": launches}
+    rec["ok"] = bool(tuple(tokens.shape) == (8, 4)
+                     and not any(launches.values()))
+    emit(rec)
+    if not rec["ok"]:
+        bad.append("e_cli")
+    if bad:
+        raise AssertionError(f"LM decode checks failed: {bad}")
 
 
 def _kernel_entry(name, source, replaces, launches, measured,
@@ -3248,6 +3541,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("lm")
     phase_s["lm"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        phase_lm_decode(torch, tiled, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("lm_decode")
+    phase_s["lm_decode"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)

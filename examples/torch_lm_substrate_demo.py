@@ -1,6 +1,6 @@
 """LM substrate demo on the port: train a reduced config of each assigned
-architecture for a few steps (the training half of
-``examples/lm_substrate_demo.py``; its greedy decode is not ported yet).
+architecture for a few steps and decode from it greedily, as
+``examples/lm_substrate_demo.py`` does.
 
     PYTHONPATH=src python examples/torch_lm_substrate_demo.py [--arch llama3-8b]
 
@@ -13,14 +13,17 @@ import torch
 from repro_torch.configs import LM_ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import lm_train_batch
-from repro_torch.models import init_params, make_train_step
+from repro_torch.models import (init_cache, init_params, make_serve_step,
+                                make_train_step)
+from repro_torch.models.transformer import prefill_cross_cache
 from repro_torch.train.adam import adam_init
 
 
 def demo(arch: str, steps: int = 5, device="cuda") -> list:
     """``steps`` train steps of ``arch``'s SMOKE config on batches of 4 x 64
     synthetic tokens (whisper: 0.3-scaled random frames, internvl2: a
-    0.3-scaled random patch prefix); prints and returns the losses."""
+    0.3-scaled random patch prefix), then :func:`greedy_decode` from the
+    trained params; prints both and returns the losses."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=True)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -37,7 +40,33 @@ def demo(arch: str, steps: int = 5, device="cuda") -> list:
         params, opt, loss = train(params, opt, batch)
         losses.append(float(loss))
         print(f"  [{arch}] train step {i}: loss={losses[-1]:.4f}", flush=True)
+    greedy_decode(arch, cfg, params, gen, dev)
     return losses
+
+
+def greedy_decode(arch: str, cfg, params: dict, gen: torch.Generator,
+                  device, steps: int = 8) -> list:
+    """``steps`` greedy tokens for 2 rows from token 0 against a 32-slot
+    cache (whisper: the cross cache from 0.3-scaled random frames of 16
+    positions); tokens stay on the device until the end. Prints and
+    returns row 0's tokens."""
+    cache = init_cache(cfg, 2, 32, enc_len=16 if cfg.is_encdec else 0,
+                       device=device)
+    if cfg.is_encdec:
+        frames = torch.randn((2, 16, cfg.d_model), generator=gen,
+                             device=device) * 0.3
+        cache = prefill_cross_cache(params, cfg, frames, cache)
+    serve = make_serve_step(cfg)
+    toks = torch.zeros((2,), dtype=torch.int32, device=device)
+    out = []
+    for pos in range(steps):
+        logits, cache = serve(params, cache, toks, pos)
+        toks = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(
+            torch.int32)
+        out.append(toks[0])
+    out = torch.stack(out).tolist()
+    print(f"  [{arch}] greedy decode: {out}", flush=True)
+    return out
 
 
 def main():

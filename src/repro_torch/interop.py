@@ -55,6 +55,14 @@ the LM substrate's parameter tree, a nested dict of arrays in the
 reference's layout (``jax.tree.map(np.asarray, init_params(...))``);
 ``lm_adam_from_numpy`` / ``lm_adam_to_numpy`` its ``AdamState`` as
 ``{"step", "mu": <params-like>, "nu": <params-like>}``.
+
+``lm_cache_from_numpy`` (and ``lm_cache_to_numpy``, its inverse) carry an
+LM decode cache (``init_cache``'s tree). The reference hands bf16 leaves
+over with numpy's ``bfloat16`` dtype (``ml_dtypes``, which the card's
+machine lacks), which ``torch.from_numpy`` refuses: they move bit for bit
+as 16-bit integers, and ``lm_cache_to_numpy`` gives bf16 leaves back as
+``uint16`` bit patterns (``a.view(ml_dtypes.bfloat16)`` on the caller's
+side).
 """
 from __future__ import annotations
 
@@ -245,3 +253,30 @@ def lm_adam_to_numpy(state: AdamState) -> dict:
     return {"step": np.asarray(state.step, dtype=np.int32),
             "mu": lm_params_to_numpy(state.mu),
             "nu": lm_params_to_numpy(state.nu)}
+
+
+def lm_cache_from_numpy(tree: dict, device="cpu") -> dict:
+    """An LM cache tree of numpy arrays as tensors on ``device``; bf16
+    leaves (numpy's ``bfloat16``) move as their bit patterns."""
+    def leaf(a):
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' type, by name
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
+
+    return {k: lm_cache_from_numpy(v, device) if isinstance(v, dict)
+            else leaf(v) for k, v in tree.items()}
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The inverse of :func:`lm_cache_from_numpy` (arrays on the host; bf16
+    leaves as ``uint16`` bit patterns)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return {k: lm_cache_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in cache.items()}

@@ -1,7 +1,16 @@
-"""GP serving driver of the port: fit -> export `ServableGP` -> bucketed engine.
+"""Serving driver of the port; port of ``repro.launch.serve``.
 
-Port of the GP half of ``repro.launch.serve`` (``_fit_gp``, ``serve_gp``,
-``serve_gp_compat``, ``serve_gp_http`` and its smoke probes): a few outer marginal-likelihood steps
+LM archs (``--arch <lm>``, :func:`serve_lm`): greedy autoregressive
+generation from the arch's SMOKE config with random weights, through
+``make_serve_step`` against a KV/SSM cache updated in place:
+
+    python -m repro_torch.launch.serve --arch llama3-8b --batch 4 \\
+        --tokens 32 --max-len 128
+
+GP arch (``--arch gp-iterative``, the default): fit -> export
+`ServableGP` -> bucketed engine; the GP half of the reference's driver
+(``_fit_gp``, ``serve_gp``, ``serve_gp_compat``, ``serve_gp_http`` and
+its smoke probes): a few outer marginal-likelihood steps
 (pathwise estimator, warm-started CG without preconditioner, Adam), export
 of the solver carry as the servable correction matrix, then ``--requests``
 requests of 64 test rows answered with zero linear solves (eq. 16).
@@ -41,10 +50,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.driver import FitResult, fit
 from repro_torch.core.outer import OuterConfig, OuterState
 from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.data.synthetic import Dataset, load_dataset
+from repro_torch.device import resolve_device
+from repro_torch.models import init_cache, init_params, make_serve_step
+from repro_torch.models.transformer import prefill_cross_cache
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.scrape import parse_prometheus
 from repro_torch.serve.artifact import export_servable
@@ -72,6 +85,44 @@ REQUEST_WIDTH = 64
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def serve_lm(args, params: Optional[dict] = None) -> torch.Tensor:
+    """Greedy decoding of ``args.arch``'s SMOKE config: ``args.tokens``
+    steps x ``args.batch`` rows from token 0 against a ``args.max_len``
+    cache (whisper: the cross cache filled from 0.3-scaled random frames
+    of 32 positions). ``params`` (default: drawn from ``args.seed``) lets
+    a caller hand weights over. Tokens stay on the device until the end;
+    prints the reference's ``[serve]`` line and returns the tokens as a
+    (tokens, batch) CPU tensor."""
+    cfg = get_config(args.arch, smoke=True)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if params is None:
+        params = init_params(gen, cfg)
+    b, steps = args.batch, args.tokens
+    enc_len = 32 if cfg.is_encdec else 0
+    cache = init_cache(cfg, b, args.max_len, enc_len=enc_len, device=dev)
+    if cfg.is_encdec:
+        frames = torch.randn((b, enc_len, cfg.d_model), generator=gen,
+                             device=dev) * 0.3
+        cache = prefill_cross_cache(params, cfg, frames, cache)
+    step = make_serve_step(cfg)
+    toks = torch.zeros((b,), dtype=torch.int32, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = []
+    for pos in range(steps):
+        logits, cache = step(params, cache, toks, pos)
+        toks = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(
+            torch.int32)
+        out.append(toks)
+    tokens = torch.stack(out).cpu()  # the one read back
+    dt = time.perf_counter() - t0
+    print(f"[serve] {args.arch}: {steps} steps x batch {b} in {dt:.2f}s "
+          f"({steps*b/dt:.1f} tok/s); sample row: "
+          f"{tokens[:16, 0].tolist()}", flush=True)
+    return tokens
 
 
 def gp_config(args) -> OuterConfig:
@@ -637,11 +688,15 @@ def build_parser() -> argparse.ArgumentParser:
     """The CLI flags (reference names and defaults, plus the port's own)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="gp-iterative")
     ap.add_argument("--dataset", default="pol")
     ap.add_argument("--max-n", type=int, default=2000,
                     help="row cap on the dataset (0 = the full dataset)")
     ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--requests", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--buckets", default="16,64,256",
                     help="comma-separated GP engine row buckets")
@@ -699,10 +754,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """CLI entry: parse flags, then fit and run :func:`serve_gp_compat`
-    under ``--compat``, :func:`serve_gp_http` under ``--http``, else
-    :func:`serve_gp`."""
+    """CLI entry: parse flags; an LM ``--arch`` runs :func:`serve_lm` and
+    returns its tokens. ``gp-iterative`` fits and runs
+    :func:`serve_gp_compat` under ``--compat``, :func:`serve_gp_http`
+    under ``--http``, else :func:`serve_gp`."""
     args = build_parser().parse_args(argv)
+    if args.arch != "gp-iterative":
+        return serve_lm(args)
     if args.compat:
         ds, _, res = fit_gp(args)
         serve_gp_compat(args, ds, res.state)

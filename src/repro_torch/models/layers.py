@@ -1,5 +1,6 @@
-"""Transformer building blocks shared by the 10 assigned architectures, train
-half; port of ``repro.models.layers``.
+"""Transformer building blocks shared by the 10 assigned architectures; port
+of ``repro.models.layers``. Every block has a train path (full sequence)
+and, for attention, a decode path (one token against a cache).
 
 Pure functions over nested-dict parameter trees (fp32 storage, compute in
 ``cfg.compute_dtype``). Each block casts where the reference casts: the
@@ -58,8 +59,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     hd = x.shape[-1]
     half = hd // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=x.device), exponent)
+    # A Python base: a tensor made from it on the card would be a
+    # host-to-device copy, which synchronises (once per layer at decode).
+    freq = 1.0 / torch.pow(float(theta), exponent)
     angles = positions[..., None].float() * freq  # (..., S, half)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
@@ -73,8 +75,7 @@ def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
     """(seq_len, dim) absolute positions: [sin | cos] of pos / 1e4^(2i/dim)."""
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
-    angles = pos / torch.pow(torch.tensor(10_000.0, device=device),
-                             2.0 * i / dim)
+    angles = pos / torch.pow(10_000.0, 2.0 * i / dim)
     emb = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
     return emb.to(dtype)
 
@@ -104,19 +105,30 @@ def _gqa_scores_and_out(q, k, v, mask, scale):
 
     Scores are fp32 from fp32 copies of q and k (exact products of bf16
     operands), as the reference's fp32-accumulated einsum; probabilities
-    are cast to ``v``'s dtype before the second product.
+    are cast to ``v``'s dtype before the second product. ``mask`` is
+    additive and broadcasts against (G, S, T).
+
+    One KV head at a time, with its G query heads folded into the rows:
+    (B, G*S, hd) against that head's (B, T, hd) slice of k and v, which
+    are strided views that a batched GEMM on the card reads in place. No
+    tensor carries a broadcast group axis (``matmul`` would materialise
+    K and V G times over), and the fp32 copy of K is one head's at a
+    time: at llama3-8b's decode_32k 2.15 GB instead of 17.18 GB a layer.
     """
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
-    qg = q.float().reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4)  # b k g s d
-    kt = k.float().permute(0, 2, 3, 1)[:, :, None]  # b k 1 d t
-    scores = torch.matmul(qg, kt) * scale  # (B,KV,G,S,T) fp32
-    if mask is not None:
-        scores = scores + mask  # mask broadcasts over (b, kv, g)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    vt = v.permute(0, 2, 1, 3)[:, :, None]  # b k 1 t d
-    out = torch.matmul(probs, vt)  # (B,KV,G,S,hd)
+    outs = []
+    for j in range(kv):
+        qj = q[:, :, j * g:(j + 1) * g].float().permute(0, 2, 1, 3)
+        qj = qj.reshape(b, g * s, hd)  # rows (g, s)
+        scores = torch.matmul(qj, k[:, :, j].float().transpose(1, 2))
+        scores = scores.view(b, g, s, t) * scale  # (B,G,S,T) fp32
+        if mask is not None:
+            scores = scores + mask
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(torch.matmul(probs.view(b, g * s, t), v[:, :, j]))
+    out = torch.stack(outs, dim=1).view(b, kv, g, s, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
 
 
@@ -167,6 +179,93 @@ def cross_attention_train(params: dict, x: torch.Tensor, enc: torch.Tensor,
     v = (ec @ w("wv")).reshape(b, t, kv, hd)
     out = _gqa_scores_and_out(q, k, v, None, 1.0 / math.sqrt(hd))
     return (out.reshape(b, s, h * hd) @ w("wo")).to(x.dtype)
+
+
+def pos_tensor(pos, device) -> torch.Tensor:
+    """A decode position (a Python int or a 0-d integer tensor) as a 0-d
+    int64 tensor on ``device``: an int is filled in on the device, so no
+    host-to-device copy and no synchronise."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
+                     cfg: ModelConfig, spec: LayerSpec) -> tuple:
+    """One-token GQA step. x: (B, 1, D); cache {"k", "v"}: (B, S_max, KV,
+    hd); pos: the token's index (an int or a 0-d integer tensor).
+
+    The new K/V row is written into the caller's cache tensors in place
+    (the reference donates its cache; a functional copy of llama3-8b's
+    decode_32k cache would be another 34.4 GB) and ``(y, cache)`` returns
+    those same tensors. Windowed layers (SWA or chunked, ``window > 0``,
+    ``S_max <= window``) are ring buffers: slot ``pos % S_max``. Any other
+    slot is ``pos`` clamped to ``S_max - 1``, as ``dynamic_update_slice``
+    clamps its start. Masks: slots ``j <= pos``; every slot once an SWA
+    ring is full; under chunked attention ``j <= pos % S_max``.
+    """
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_cache, v_cache = cache["k"], cache["v"]
+    s_max = k_cache.shape[1]
+    pos = pos_tensor(pos, x.device)
+    xc = _to_compute(x, cfg)
+
+    def w(name):
+        return params[name].to(xc.dtype)
+
+    q = xc @ w("wq")
+    k_new = xc @ w("wk")
+    v_new = xc @ w("wv")
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k_new = k_new + params["bk"].to(k_new.dtype)
+        v_new = v_new + params["bv"].to(v_new.dtype)
+    q = q.reshape(b, 1, h, hd)
+    k_new = k_new.reshape(b, 1, kv, hd)
+    v_new = v_new.reshape(b, 1, kv, hd)
+    if cfg.use_rope:
+        q = rope(q, pos.reshape(1), cfg.rope_theta)
+        k_new = rope(k_new, pos.reshape(1), cfg.rope_theta)
+
+    windowed = (spec.kind in (ATTN_SWA, ATTN_CHUNKED) and spec.window > 0
+                and s_max <= spec.window)
+    slot = torch.clamp(pos % s_max if windowed else pos, 0, s_max - 1)
+    k_cache.index_copy_(1, slot.reshape(1), k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot.reshape(1), v_new.to(v_cache.dtype))
+
+    j = torch.arange(s_max, device=x.device)
+    if not windowed:
+        valid = j <= pos
+    elif spec.kind == ATTN_SWA:
+        # every written slot is inside the sliding window by construction
+        valid = (j <= pos) | (pos >= s_max)
+    else:  # chunked: only slots written in the current chunk
+        valid = j <= pos % s_max
+    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    out = _gqa_scores_and_out(q, k_cache, v_cache, mask, 1.0 / math.sqrt(hd))
+    # JAX promotes a bf16 output (bf16 cache) against fp32 weights to fp32
+    dt = torch.promote_types(out.dtype, xc.dtype)
+    y = (out.reshape(b, 1, h * hd).to(dt) @ w("wo").to(dt)).to(x.dtype)
+    return y, {"k": k_cache, "v": v_cache}
+
+
+def cross_attention_decode(params: dict, x: torch.Tensor, cache: dict,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (whisper decode);
+    x: (B, 1, D), cache {"ck", "cv"}: (B, T_enc, KV, hd)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    xc = _to_compute(x, cfg)
+
+    def w(name):
+        return params[name].to(xc.dtype)
+
+    q = (xc @ w("wq")).reshape(b, 1, h, hd)
+    out = _gqa_scores_and_out(q, cache["ck"].to(xc.dtype),
+                              cache["cv"].to(xc.dtype), None,
+                              1.0 / math.sqrt(hd))
+    return (out.reshape(b, 1, h * hd) @ w("wo")).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

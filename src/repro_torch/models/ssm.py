@@ -1,5 +1,5 @@
-"""Mamba2 / SSD (state-space duality) block, train half — arXiv:2405.21060;
-port of ``repro.models.ssm``.
+"""Mamba2 / SSD (state-space duality) block — arXiv:2405.21060; port of
+``repro.models.ssm``.
 
 The SSD *chunked* path: within a chunk the recurrence becomes dense
 (masked) matmuls; across chunks a short loop carries the (heads, head_dim,
@@ -14,6 +14,9 @@ the masked segment sums (``exp(where(causal, seg, -inf))``) instead of
 masking ``exp(seg)``. The values are the same; the reference's gradient
 becomes NaN once an above-diagonal ``seg`` overflows ``exp`` (0 * inf),
 which full-width chunks reach, while the port's stays finite.
+
+Decode is the O(1) recurrence: h' = h * exp(dt*A) + dt * (B outer x);
+y = C . h + D*x, plus a rolling depthwise-conv state.
 
 Single B/C group (n_groups=1), following mamba2-780m.
 """
@@ -145,3 +148,60 @@ def rms_norm_gated(x: torch.Tensor, scale: torch.Tensor, eps: float
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def mamba_decode(params: dict, x: torch.Tensor, cache: dict,
+                 cfg: ModelConfig) -> tuple:
+    """O(1) per-token Mamba2 recurrence. x: (B, 1, D); cache {"conv": (B,
+    W-1, conv_dim), "ssm": (B, NH, HD, N)}.
+
+    The conv window is read through the cache's dtype (bf16 by default, so
+    rounded every step even at fp32 compute, as in the reference); the
+    state update is fp32. The new conv window and state are written into
+    the caller's cache tensors in place, and ``(out, cache)`` returns
+    those same tensors.
+    """
+    ssm = cfg.ssm
+    b, _, d = x.shape
+    d_in = ssm.d_inner(d)
+    nh = ssm.num_heads(d)
+    hd = ssm.head_dim
+    n = ssm.d_state
+    xc = _to_compute(x, cfg)
+
+    def w(name):
+        return params[name].to(xc.dtype)
+
+    proj = (xc @ w("in_proj"))[:, 0]  # (B, ...)
+    z, xbc, dt_raw = _split_proj(proj, cfg)
+
+    # Rolling conv state: window = [cache | current]. The reference's
+    # einsum "bwc,wc->bc" is fp32 products of the compute-dtype operands
+    # summed over w, rounded once.
+    wt = params["conv_w"].to(xc.dtype)  # (W, conv_dim)
+    window = torch.cat([cache["conv"].to(xc.dtype), xbc[:, None, :]],
+                       dim=1)  # (B, W, conv_dim)
+    conv = (window.float() * wt.float()[None]).sum(1).to(xc.dtype)
+    xbc_act = F.silu(conv + params["conv_b"].to(xc.dtype))
+
+    xs, bvec, cvec = torch.split(xbc_act, [d_in, n, xbc_act.shape[-1]
+                                           - d_in - n], dim=-1)
+    xs = xs.reshape(b, nh, hd)
+    dt_in = dt_raw.float() + params["dt_bias"].float()
+    dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))  # softplus (B, NH)
+    a = -torch.exp(params["A_log"].float())  # (NH,)
+
+    h = cache["ssm"].float()  # (B,NH,HD,N)
+    decay = torch.exp(dt * a)[:, :, None, None]
+    upd = (dt[:, :, None, None] * xs.float()[:, :, :, None]
+           * bvec.float()[:, None, None, :])
+    h_new = h * decay + upd
+    y = torch.matmul(h_new, cvec.float()[:, None, :, None])[..., 0]  # B,NH,HD
+    y = y + params["D"].float()[None, :, None] * xs.float()
+    y = y.reshape(b, d_in).to(xc.dtype)
+    y = y * F.silu(z)
+    y = rms_norm_gated(y, params["norm"], cfg.norm_eps)
+    out = (y @ w("out_proj"))[:, None, :].to(x.dtype)
+    cache["conv"].copy_(window[:, 1:, :])
+    cache["ssm"].copy_(h_new)
+    return out, {"conv": cache["conv"], "ssm": cache["ssm"]}

@@ -1,5 +1,4 @@
-"""Train and prefill step builders; port of the training half of
-``repro.models.steps``.
+"""Train, prefill and serve step builders; port of ``repro.models.steps``.
 
 train_step: microbatched gradient accumulation (a loop over row slices,
 fp32 accumulators) -> global fp32 grads -> Adam. The reference's sharding
@@ -13,7 +12,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward_encdec, forward_lm
+from repro_torch.models.transformer import (decode_step, forward_encdec,
+                                           forward_lm)
 from repro_torch.train.adam import (AdamConfig, AdamState, adam_update,
                                     tree_leaves, tree_unflatten)
 
@@ -104,3 +104,13 @@ def make_prefill_step(cfg: ModelConfig):
                           patch_embeds=batch.get("patch_embeds", None))
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, cache, tokens, pos) -> (logits, cache)``: one
+    :func:`decode_step` without gradients, the cache updated in place."""
+    @torch.no_grad()
+    def serve_step(params: dict, cache: dict, tokens: torch.Tensor, pos):
+        return decode_step(params, cfg, cache, tokens, pos)
+
+    return serve_step

@@ -1,4 +1,4 @@
-"""Model assembly for all assigned architectures, train half; port of
+"""Model assembly for all assigned architectures; port of
 ``repro.models.transformer``.
 
 Parameters are nested dicts of fp32 tensors in the reference's layout:
@@ -9,11 +9,15 @@ leaf of a period is stacked on a leading ``num_periods`` axis, one
 (``repro_torch.interop.lm_params_from_numpy``). The reference's
 ``lax.scan`` over periods is a loop over the leading axis, and
 ``cfg.remat`` checkpoints each period
-(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``).
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``). The
+reference's ``constrain`` calls are placement hints for a device mesh;
+the single-card port has no counterpart.
 
-Two entry points:
+Three entry points:
   forward_lm       decoder-only training forward (vision prefix optional)
   forward_encdec   whisper-style encoder-decoder training forward
+  decode_step      one-token serve step against a KV/SSM cache, updated
+                   in place
 """
 from __future__ import annotations
 
@@ -32,15 +36,18 @@ from repro_torch.models.config import (
     ModelConfig,
 )
 from repro_torch.models.layers import (
+    attention_decode,
     attention_train,
     compute_dtype,
+    cross_attention_decode,
     cross_attention_train,
     mlp,
     moe_ffn,
+    pos_tensor,
     rms_norm,
     sinusoidal_positions,
 )
-from repro_torch.models.ssm import mamba_train
+from repro_torch.models.ssm import mamba_decode, mamba_train
 from repro_torch.train.adam import tree_leaves
 
 
@@ -317,3 +324,119 @@ def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                    torch.arange(s, device=x.device), enc)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x @ _head(params).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Decode (serving)
+# --------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """Per-period stacked cache tree of zeros on ``device``: per pattern
+    position ``block_{i}``, attention ``k``/``v`` (P, B, L, KV, hd) with
+    ``L = min(window, max_len)`` for windowed layers (ring buffers), or
+    Mamba ``conv`` (P, B, W-1, conv_dim) in ``dtype`` and ``ssm`` (P, B,
+    NH, HD, N) in fp32; encoder-decoder configs add ``ck``/``cv`` (P, B,
+    enc_len, KV, hd)."""
+    p = cfg.num_periods
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    period = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.kind == MAMBA:
+            ssm = cfg.ssm
+            conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.d_state
+            blk = {
+                "conv": zeros((p, batch, ssm.conv_width - 1, conv_dim)),
+                "ssm": zeros((p, batch, ssm.num_heads(cfg.d_model),
+                              ssm.head_dim, ssm.d_state), torch.float32),
+            }
+        else:
+            length = max_len
+            if spec.kind in ("swa", "chunked") and spec.window > 0:
+                length = min(spec.window, max_len)
+            blk = {"k": zeros((p, batch, length, kv, hd)),
+                   "v": zeros((p, batch, length, kv, hd))}
+        if cfg.is_encdec:
+            blk["ck"] = zeros((p, batch, enc_len, kv, hd))
+            blk["cv"] = zeros((p, batch, enc_len, kv, hd))
+        period[f"block_{i}"] = blk
+    return period
+
+
+def prefill_cross_cache(params: dict, cfg: ModelConfig,
+                        frames: torch.Tensor, cache: dict) -> dict:
+    """Encode source frames and fill the decoder cross-attention K/V cache
+    (whisper serving prefill), period by period, in place; returns
+    ``cache``."""
+    enc = encode(params, cfg, frames)  # (B, T, D)
+    b, t, _ = enc.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    count = cfg.num_periods
+    for p, period_params in enumerate(_unstack(params["layers"], count)):
+        for i in range(len(cfg.pattern)):
+            cross = period_params[f"block_{i}"]["cross"]
+            blk_c = cache[f"block_{i}"]
+            for name, wname in (("ck", "wk"), ("cv", "wv")):
+                val = enc @ cross[wname].to(enc.dtype)
+                blk_c[name][p].copy_(val.reshape(b, t, kv, hd))
+    return cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos) -> tuple:
+    """One serving step: next-token logits (B, padded_vocab) in fp32, and
+    the cache.
+
+    ``tokens``: (B,) current ids; ``pos``: the position, a Python int or a
+    0-d integer tensor (never read back to the host). Every layer writes
+    its new K/V slot, conv window and SSM state into the caller's cache
+    tensors in place (the reference donates the cache), and the returned
+    cache is the same dict: clone it first to keep the state before a
+    step.
+    """
+    x = F.embedding(tokens.long(), params["embed"])[:, None, :].to(
+        compute_dtype(cfg))
+    pos = pos_tensor(pos, x.device)
+    if not cfg.use_rope:
+        x = x + _sinusoidal_at(pos, cfg.d_model, x.dtype)[None, None, :]
+    count = cfg.num_periods
+    for period_params, period_cache in zip(_unstack(params["layers"], count),
+                                           _unstack(cache, count)):
+        for i, spec in enumerate(cfg.pattern):
+            blk_p = period_params[f"block_{i}"]
+            blk_c = period_cache[f"block_{i}"]
+            if spec.kind == MAMBA:
+                y, _ = mamba_decode(
+                    blk_p["mamba"],
+                    rms_norm(x, blk_p["mamba"]["ln"], cfg.norm_eps), blk_c,
+                    cfg)
+            else:
+                y, _ = attention_decode(
+                    blk_p["attn"],
+                    rms_norm(x, blk_p["attn"]["ln"], cfg.norm_eps), blk_c,
+                    pos, cfg, spec)
+            x = x + y
+            if cfg.is_encdec and "cross" in blk_p:
+                x = x + cross_attention_decode(
+                    blk_p["cross"],
+                    rms_norm(x, blk_p["cross"]["ln"], cfg.norm_eps), blk_c,
+                    cfg)
+            if "ffn" in blk_p:
+                z = rms_norm(x, blk_p["ffn"]["ln"], cfg.norm_eps)
+                if spec.moe and cfg.moe is not None:
+                    x = x + moe_ffn(blk_p["ffn"], z, cfg)
+                else:
+                    x = x + mlp(blk_p["ffn"], z, cfg)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = (x[:, 0, :] @ _head(params).to(x.dtype)).float()
+    return logits, cache
+
+
+def _sinusoidal_at(pos: torch.Tensor, dim: int, dtype) -> torch.Tensor:
+    """Row ``pos`` of ``sinusoidal_positions(., dim)``, from a 0-d tensor."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
+    angles = pos.float() / torch.pow(10_000.0, 2.0 * i / dim)
+    return torch.cat([torch.sin(angles), torch.cos(angles)]).to(dtype)

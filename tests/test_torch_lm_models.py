@@ -120,5 +120,6 @@ def test_demo_twin_trains_on_cpu(capsys):
     losses = demo.demo("mamba2-780m", steps=2, device="cpu")
     out = capsys.readouterr().out.splitlines()
     assert [line.split(":")[0] for line in out] == [
-        "  [mamba2-780m] train step 0", "  [mamba2-780m] train step 1"]
+        "  [mamba2-780m] train step 0", "  [mamba2-780m] train step 1",
+        "  [mamba2-780m] greedy decode"]
     assert len(losses) == 2 and np.all(np.isfinite(losses))

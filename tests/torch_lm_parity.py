@@ -1,6 +1,7 @@
 """Shared set-up of the LM substrate's parity tests (``test_torch_lm_*.py``):
 the reference's SMOKE params handed over as numpy, batches drawn with numpy
-from a seed, and a few train steps through both packages."""
+from a seed, a few train steps through both packages, and the reference's
+jitted serve step."""
 import dataclasses
 import functools
 
@@ -11,6 +12,7 @@ import torch
 from repro.configs import SMOKE_SHAPES
 from repro.configs import get_config as j_get_config
 from repro.models import init_params as j_init_params
+from repro.models import make_serve_step as j_make_serve_step
 from repro.models import make_train_step as j_make_train_step
 from repro.train.adam import adam_init as j_adam_init
 from repro_torch.configs import get_config
@@ -57,6 +59,13 @@ def reference_params(cfg, seed: int = 0) -> dict:
 def _reference_params(cfg, seed: int) -> dict:
     return jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(seed),
                                                   cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def reference_serve_step(cfg):
+    """The reference's ``jax.jit(make_serve_step(cfg))``, one per config in
+    a process (its compiles are cached by shape)."""
+    return jax.jit(j_make_serve_step(cfg))
 
 
 def numpy_batch(cfg, seed: int, rows: int = None, seq: int = None) -> dict:

@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train,
-refresh, serve over HTTP, train the LM substrate and decode from it.
+refresh, serve over HTTP, train the LM substrate, decode from it and
+account for the dry-run's cells.
 
     python3 chip_smoke.py
 
@@ -202,6 +203,27 @@ Phases, each printing JSON lines:
    step from the CPU's cache), held to the CPU tests' bounds
    (``TOL_DECODE``). (e) The serve CLI once: ``--arch llama3-8b --tokens
    8``.
+
+15. dryrun (since the dry-run slice), after lm_decode, its launch counts
+   set to 0 before it: (a) ``python -m repro_torch.launch.sweep --meshes
+   single`` over all 38 runnable cells (one subprocess each, one per
+   core at once),
+   then ``--meshes multi --only-arch llama3-8b``; every cell must account,
+   and each prints its peak GiB per chip, the three roofline terms, the
+   bottleneck and ``roofline_fraction``. (b) ``run_cell`` on
+   ``make_host_mesh()`` (the one card) at phase lm's and lm_decode's cuts
+   (llama3-8b, 2 of 32 layers: train_4k with 2 rows as 2 microbatches,
+   decode_32k whole), then the real step on the card: argument bytes equal
+   the real tensors' (the reference's int32 Adam step counted), flops equal
+   ``FlopCounterMode`` of the real step to ``DRYRUN_FLOPS_RTOL``, the
+   estimated peak within ``DRYRUN_PEAK_FACTOR`` of
+   ``torch.cuda.max_memory_allocated``, seconds beside the roofline terms.
+   (c) ``lower_gp_outer_step`` at gp_392k (391 168 rows, d = 3, 64 probes,
+   10 epochs) on (2, 2, 2) ("pod", "data", "model") virtual shards of the
+   card, inputs from a seed, one step: (10 + 2) P^2 forward and P + 2P(P -
+   1) backward launches, res_z finite, step seconds, peak memory, the
+   accounting's rotation bytes per position beside the bytes the ring's
+   moves copied. The 256-position production mesh is accounted only.
 
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
@@ -3358,6 +3380,254 @@ def phase_lm_decode(torch, tiled, smi: str) -> None:
         raise AssertionError(f"LM decode checks failed: {bad}")
 
 
+# Phase 15: the dry-run accounting. The sweep's cells run as subprocesses
+# of ``repro_torch.launch.sweep`` (one per core at once); the host-mesh
+# runs at phase lm's and lm_decode's cuts; the GP step on 8 virtual shards.
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_SINGLE_CELLS = 38
+DRYRUN_MULTI_ARCH = "llama3-8b"
+# The estimated peak against torch.cuda.max_memory_allocated, either way.
+DRYRUN_PEAK_FACTOR = 2.0
+# Estimated flops against FlopCounterMode of the real step, relative.
+DRYRUN_FLOPS_RTOL = 1e-6
+# The reference keeps Adam's step as a device int32; the port as a Python
+# int: the accounting's argument bytes count those 4 bytes.
+ADAM_STEP_BYTES = 4
+
+
+def _dryrun_sweep() -> list:
+    """(a): the sweep over every runnable cell on the single-pod mesh, then
+    llama3-8b's cells on the two-pod mesh; one line per cell."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    problems = []
+    for meshes, extra in (("single", []),
+                          ("multi", ["--only-arch", DRYRUN_MULTI_ARCH])):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sweep", "--out",
+             str(DRYRUN_DIR), "--meshes", meshes, "--timeout", "300",
+             *extra],
+            capture_output=True, text=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        emit({"phase": "dryrun", "run": f"a_sweep_{meshes}", "rc":
+              r.returncode, "seconds": time.perf_counter() - t0,
+              "tail": r.stdout[-300:]})
+        if r.returncode != 0:
+            problems.append(f"sweep {meshes}: rc {r.returncode}: "
+                            f"{r.stdout[-2000:]}")
+    reports = sorted(p for p in DRYRUN_DIR.glob("*.json")
+                     if not p.name.startswith("_"))
+    counts = {"single": 0, "multi": 0}
+    for path in reports:
+        rep = json.loads(path.read_text())
+        counts[rep["mesh"]] += 1
+        emit({"phase": "dryrun", "run": "a_cell", "arch": rep["arch"],
+              "shape": rep["shape"], "mesh": rep["mesh"],
+              "chips": rep["chips"],
+              "peak_gib_per_chip": rep["peak_bytes"] / 2**30,
+              "argument_bytes": rep["argument_bytes"],
+              "t_compute_s": rep["t_compute"], "t_memory_s": rep["t_memory"],
+              "t_collective_s": rep["t_collective"],
+              "bottleneck": rep["bottleneck"],
+              "roofline_fraction": rep["roofline_fraction"]})
+    from repro_torch.configs import runnable_cells
+
+    want = {"single": DRYRUN_SINGLE_CELLS,
+            "multi": sum(a == DRYRUN_MULTI_ARCH
+                         for a, _, st in runnable_cells() if st == "run")}
+    if counts != want:
+        problems.append(f"sweep reports {counts} != {want}")
+    return problems
+
+
+def _real_bytes(torch, trees) -> int:
+    """Bytes of every tensor in ``trees`` (nested dicts, lists, tensors)."""
+    from torch.utils._pytree import tree_flatten
+
+    return sum(t.numel() * t.element_size() for t in tree_flatten(trees)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def _dryrun_host(torch, label, arch, shape, cfg, smi, device="cuda") -> dict:
+    """(b): ``run_cell`` on ``make_host_mesh()``, then the real step on the
+    card: argument bytes, peak memory and flops against the accounting."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import _num_microbatches, run_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import (concrete_batch, init_params,
+                                    make_serve_step, make_train_step)
+    from repro_torch.train.adam import adam_init
+
+    t0 = time.perf_counter()
+    rep = run_cell(arch, shape.name, "host", str(DRYRUN_DIR / "host"),
+                   cfg=cfg, shape=shape, device=device)
+    account_s = time.perf_counter() - t0
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(gen, cfg)
+    inputs = concrete_batch(cfg, shape, gen)
+    if shape.step == "train":
+        step = make_train_step(cfg, num_microbatches=_num_microbatches(
+            shape, make_host_mesh(device)))
+        opt = adam_init(params)
+        args = (params, opt, inputs["batch"])
+        arg_bytes = _real_bytes(torch, (params, opt.mu, opt.nu,
+                                        inputs["batch"])) + ADAM_STEP_BYTES
+    else:
+        step = make_serve_step(cfg)
+        args = (params, inputs["cache"], inputs["tokens"], inputs["pos"])
+        arg_bytes = _real_bytes(torch, args)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    sync()
+    del out
+    real_flops = counter.get_total_flops()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(*args)
+    sync()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del out, args, params, inputs
+    if on_card:
+        torch.cuda.empty_cache()
+    rel = abs(rep["flops_per_chip"] - real_flops) / real_flops
+    rec = {"phase": "dryrun", "run": label, "arch": arch, "shape": shape.name,
+           "num_layers": cfg.num_layers, "account_s": account_s,
+           "argument_bytes": rep["argument_bytes"],
+           "real_argument_bytes": arg_bytes,
+           "estimated_peak_bytes": rep["peak_bytes"],
+           "estimated_temp_bytes": rep["temp_bytes"],
+           "max_memory_allocated": peak,
+           "peak_ratio": (rep["peak_bytes"] / peak) if peak else None,
+           "estimated_flops": rep["flops_per_chip"], "real_flops": real_flops,
+           "flops_rel_err": rel, "step_s": seconds,
+           "t_compute_s": rep["t_compute"], "t_memory_s": rep["t_memory"],
+           "t_collective_s": rep["t_collective"],
+           "bottleneck": rep["bottleneck"],
+           "roofline_fraction": rep["roofline_fraction"],
+           "nvidia_smi": smi}
+    rec["ok"] = bool(
+        rep["argument_bytes"] == arg_bytes and rel <= DRYRUN_FLOPS_RTOL
+        and (peak is None or 1 / DRYRUN_PEAK_FACTOR <= rec["peak_ratio"]
+             <= DRYRUN_PEAK_FACTOR))
+    emit(rec)
+    return rec
+
+
+def _dryrun_gp(torch, tiled, shape=None, device="cuda") -> tuple:
+    """(c): ``lower_gp_outer_step`` at gp_392k (or ``shape``) on (2, 2, 2)
+    virtual shards of the card (of the CPU: ``device="cpu"``, a dry run
+    whose launches are not counted), the inputs drawn from a seed, one
+    step counted."""
+    from repro_torch.configs import GP_SHAPES
+    from repro_torch.distributed.gp_step import GPStepState, lower_gp_outer_step
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.gp.rff import init_rff
+    from repro_torch.launch.analysis import analysis_gp_cell
+    from repro_torch.train.adam import adam_init
+
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = shape or GP_SHAPES["gp_392k"]
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), devices=[dev] * 8)
+    low = lower_gp_outer_step(shape, mesh)
+    _, pieces = analysis_gp_cell(shape.name, mesh, shape=shape)
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x_abs, y_abs, rff_abs, w_abs = low.inputs
+    x = torch.randn(tuple(x_abs.shape), generator=gen, device=dev)
+    y = torch.randn(tuple(y_abs.shape), generator=gen, device=dev)
+    w_eps = torch.randn(tuple(w_abs.shape), generator=gen, device=dev)
+    rff = init_rff(gen, rff_abs.z.shape[0], shape.d, shape.num_probes,
+                   kind=rff_abs.kind, device=dev)
+    params = HyperParams.create(shape.d, kernel=rff_abs.kind, device=dev)
+    state = GPStepState(params, adam_init(params), shard_rows(
+        torch.zeros(tuple(low.state.carry_v.shape), device=dev), mesh),
+        torch.zeros((), device=dev), torch.zeros((), device=dev))
+    xs, ys, ws = (shard_rows(t, mesh) for t in (x, y, w_eps))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        new, seconds, counts = _counted(
+            torch, tiled, lambda: low.step(state, xs, ys, rff, ws))
+    else:
+        t0 = time.perf_counter()
+        new = low.step(state, xs, ys, rff, ws)
+        seconds, counts = time.perf_counter() - t0, (tiled.launch_counts(),)
+    moved = mesh.moved_bytes
+    expected = _expected_step_launches(tiled, mesh.size, 1,
+                                       shape.solver_epochs, shape.d,
+                                       1 + shape.num_probes)
+    problems = []
+    _check_counts("c_gp_392k", counts, expected, problems)
+    res_z = float(new.res_z)
+    mult = pieces["multipliers"]
+    sweeps_comm = shape.solver_epochs + 4
+    rec = {"phase": "dryrun", "run": "c_gp_392k_8_shards", "rows": shape.n,
+           "d": shape.d, "probes": shape.num_probes,
+           "epochs": shape.solver_epochs, "positions": mesh.size,
+           "model_flops": low.model_flops, "notes": low.notes,
+           "launches": counts[0], "expected_launches": expected,
+           "res_z": res_z, "res_y": float(new.res_y), "step_s": seconds,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if on_card else None),
+           "rot_bytes_per_step": mult["rot_bytes_per_step"],
+           "accounted_rotation_bytes_per_position":
+               mult["rot_bytes_per_step"] * mesh.size * sweeps_comm,
+           "moved_bytes_per_position": moved / mesh.size}
+    rec["ok"] = bool(math.isfinite(res_z) and not problems)
+    emit(rec)
+    del state, new, xs, ys, ws, x, y, w_eps
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec, counts, problems
+
+
+def phase_dryrun(torch, tiled, smi: str) -> list:
+    """Phase 15: (a) the sweep, (b) the host mesh against the real steps,
+    (c) the GP step from ``lower_gp_outer_step`` on 8 virtual shards.
+    Returns (c)'s launch counts (the LM runs launch neither kernel)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import LM_SHAPES
+
+    bad = _dryrun_sweep()
+    llama = get_config("llama3-8b")
+    cut = dataclasses.replace(llama, num_layers=2)
+    train = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=LM_ROWS,
+                                microbatch_rows=1)
+    emit({"phase": "dryrun", "run": "b_reduced", "reduced": {
+        "b_train": {"num_layers": [32, 2], "global_batch": [256, LM_ROWS],
+                    "microbatches": 2},
+        "b_decode": {"num_layers": [32, 2]}}})
+    tiled.reset_launch_counts()
+    for label, shape in (("b_train", train),
+                         ("b_decode", LM_SHAPES["decode_32k"])):
+        if not _dryrun_host(torch, label, "llama3-8b", shape, cut, smi)["ok"]:
+            bad.append(label)
+    if any(tiled.launch_counts().values()):
+        bad.append(f"LM runs launched kernels: {tiled.launch_counts()}")
+    rec, counts, problems = _dryrun_gp(torch, tiled)
+    bad.extend(problems)
+    if not rec["ok"]:
+        bad.append("c_gp_392k")
+    if bad:
+        raise AssertionError(f"dry-run checks failed: {bad}")
+    return [counts]
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -3548,6 +3818,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("lm_decode")
     phase_s["lm_decode"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        path_launches.extend(phase_dryrun(torch, tiled, smi))
+    except Exception:
+        traceback.print_exc()
+        failures.append("dryrun")
+    phase_s["dryrun"] = time.perf_counter() - t_phase
 
     def total(name, which=0):
         return sum(counts[which][name] for counts in path_launches)

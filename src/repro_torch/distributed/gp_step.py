@@ -24,8 +24,10 @@ gradient's forward) on a mesh of P positions; the gradient's backward
 launches the backward kernel once per position for its own tile (the fused
 call) and twice per other tile (du and dw).
 
-``lower_gp_outer_step`` (the dry-run's AOT lowering) goes with the LM
-substrate and its dry-run accounting.
+:func:`lower_gp_outer_step` is the dry-run's counterpart of the
+reference's AOT lowering: the step for a mesh, its state and inputs as
+fake tensors with their placements (rows over the mesh's row axes, the
+rest replicated), and the cell's model flops.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.distributed.ring import params_on, ring_h_mvm
-from repro_torch.distributed.sharding import RowSharded, as_row_sharded
+from repro_torch.distributed.sharding import (NamedSharding, RowSharded,
+                                              as_row_sharded, row_axes)
 from repro_torch.gp.hyperparams import HyperParams
 from repro_torch.gp.rff import RFFState, rff_features
 from repro_torch.launch.mesh import Mesh
@@ -137,3 +140,73 @@ def make_gp_outer_step(mesh: Mesh, num_probes: int, solver_epochs: int,
                            res_y=res[0], res_z=torch.mean(res[1:]))
 
     return outer_step
+
+
+class LoweredGPStep(NamedTuple):
+    """``lower_gp_outer_step``'s result. ``state`` and ``inputs`` (x, y,
+    rff, w_eps) are fake tensors; ``state_shardings`` /
+    ``input_shardings`` their placements, leaf for leaf; the state is
+    donated (its buffers become the next state's)."""
+
+    step: object
+    state: GPStepState
+    inputs: tuple
+    state_shardings: GPStepState
+    input_shardings: tuple
+    model_flops: float
+    notes: str
+
+
+def lower_gp_outer_step(shape, mesh: Mesh, tile_dtype=torch.float32
+                        ) -> LoweredGPStep:
+    """One distributed outer step for the dry-run, with abstract inputs.
+
+    On a mesh of real devices ``step`` runs: shard real tensors of the
+    fake inputs' shapes with ``shard_rows`` and call it."""
+    from repro_torch.configs.gp_iterative import CONFIG as GP_CFG
+    from repro_torch.models.transformer import fake_mode
+
+    n, d, s = shape.n, shape.d, shape.num_probes
+    m = GP_CFG.num_rff_pairs
+    axes = row_axes(mesh)
+    row = NamedSharding(mesh, (axes, None))
+    row1 = NamedSharding(mesh, (axes,))
+    repl = NamedSharding(mesh, ())
+
+    f32 = torch.float32
+    with fake_mode():
+        params = HyperParams.create(d, kernel=GP_CFG.kind)
+        moments = [params.with_leaves([torch.zeros_like(p) for p in
+                                       params.leaves]) for _ in range(2)]
+        state = GPStepState(
+            params=params,
+            adam=AdamState(step=torch.zeros((), dtype=torch.int32),
+                           mu=moments[0], nu=moments[1]),
+            carry_v=torch.empty((n, 1 + s), dtype=f32),
+            res_y=torch.empty((), dtype=f32),
+            res_z=torch.empty((), dtype=f32),
+        )
+        inputs = (torch.empty((n, d), dtype=f32),
+                  torch.empty((n,), dtype=f32),
+                  RFFState(z=torch.empty((m, d), dtype=f32),
+                           u=torch.empty((m,), dtype=f32),
+                           w=torch.empty((2 * m, s), dtype=f32),
+                           kind=GP_CFG.kind),
+                  torch.empty((n, s), dtype=f32))
+    hp_repl = params.with_leaves([repl] * 3)
+    state_sh = GPStepState(params=hp_repl,
+                           adam=AdamState(step=repl, mu=hp_repl, nu=hp_repl),
+                           carry_v=row, res_y=repl, res_z=repl)
+    input_sh = (row, row1, RFFState(z=repl, u=repl, w=repl,
+                                    kind=GP_CFG.kind), row)
+    step = make_gp_outer_step(mesh, s, shape.solver_epochs, GP_CFG.kind,
+                              tile_dtype=tile_dtype)
+
+    # MODEL_FLOPS for the GP cell: the paper's epoch accounting — one epoch
+    # touches every H entry once: kernel eval ~ (3d+8) flops/entry + MVM
+    # 2(1+s) flops/entry. (epochs+2 ring sweeps: +1 initial residual, +1
+    # gradient pass.)
+    per_entry = 3 * d + 8 + 2 * (1 + s)
+    model_flops = float(n) * n * per_entry * (shape.solver_epochs + 2)
+    return LoweredGPStep(step, state, inputs, state_sh, input_sh,
+                         model_flops, f"cg_epochs={shape.solver_epochs}")

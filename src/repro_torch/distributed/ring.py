@@ -131,6 +131,7 @@ class _Streams:
                 for b in bufs[src[p]]:
                     o = torch.empty_like(b, device=dst)
                     o.copy_(b, non_blocking=True)
+                    self.mesh.moved_bytes += b.numel() * b.element_size()
                     if dst.type == "cuda":
                         b.record_stream(self.copy[b.device])
                         o.record_stream(self.compute[dst])

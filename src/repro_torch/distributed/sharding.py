@@ -19,16 +19,21 @@ hold copies of one shard. A value that the reference keeps replicated (the
 hyperparameters, a reduction over rows) is one tensor on the mesh's first
 device here, moved to a piece's device where the two meet.
 
-The LM substrate's models and training step (``repro_torch.models``) run
-on one card and use none of this. The LM's sharding policy
-(``constrain``, ``named_sharding``, ``DP`` / ``FSDP`` / ``TP``,
-``batch_spec``) is not ported yet: it comes with the dry-run accounting,
-after LM decoding.
+The LM's sharding policy is the reference's: batch and tokens over
+:data:`DP` ("pod", "data"), a weight's tensor-parallel dimension over
+:data:`TP` ("model"), its other dimension over :data:`FSDP` ("data",
+storage only, gathered at use). The port runs an LM on one card and only
+accounts for a placement across positions (:mod:`repro_torch.launch.
+dryrun`): :func:`named_sharding` returns that placement, a
+:class:`NamedSharding` of the mesh and the per-dimension axis tuple, and
+:func:`constrain` checks a spec without moving anything. The port's
+models call neither: where the reference constrains an activation the
+only effect is placement, which the accounting reads from the policy.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -81,6 +86,53 @@ def valid_spec(mesh: Mesh, shape: Sequence[int],
             axis = None
         out.append(axis)
     return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """A placement: ``spec[i]`` names the mesh axes dimension ``i`` is split
+    over (None: not split), as ``valid_spec`` returns it."""
+
+    mesh: Mesh
+    spec: tuple
+
+    @property
+    def num_shards(self) -> int:
+        """Positions holding distinct pieces (the product of the spec's
+        axis sizes); the other positions hold copies."""
+        return math.prod(axis_size(self.mesh, a) for a in self.spec)
+
+    def shard_bytes(self, t) -> int:
+        """Bytes of ``t``'s piece at one position."""
+        return t.numel() * t.element_size() // self.num_shards
+
+
+def named_sharding(mesh: Mesh, shape: Sequence[int],
+                   spec: Sequence[AxisSpec]) -> NamedSharding:
+    """The placement of a ``shape`` tensor under ``spec`` on ``mesh``
+    (axes that do not divide dropped)."""
+    return NamedSharding(mesh, valid_spec(mesh, shape, spec))
+
+
+def constrain(x: torch.Tensor, *spec: AxisSpec) -> torch.Tensor:
+    """``x`` unchanged. With a global mesh of more than one position the
+    spec is checked (``valid_spec``); the port runs a model on one card,
+    so there is nothing to move (the reference's sharding constraint)."""
+    mesh = _GLOBAL_MESH
+    if mesh is None or mesh.size == 1:
+        return x
+    valid_spec(mesh, x.shape, spec)
+    return x
+
+
+# Logical axis names of the model policy, resolved to mesh axes here.
+DP = ("pod", "data")  # batch / tokens
+FSDP = "data"  # weight storage sharding (gathered at use)
+TP = "model"  # tensor-parallel weight dim
+
+
+def batch_spec(ndim: int) -> tuple:
+    """Batch-leading activation spec: (DP, None, ...)."""
+    return (DP,) + (None,) * (ndim - 1)
 
 
 def row_axes(mesh: Mesh) -> tuple:

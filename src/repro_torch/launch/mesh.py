@@ -17,9 +17,12 @@ importing this module touches no device.
 
 The LM substrate's training step (``repro_torch.models``) runs on one card
 without a mesh; its model-FLOP share is taken against
-:data:`PEAK_BF16_FLOPS`. ``make_production_mesh`` (the 256- and 512-chip
-meshes of the dry-run) is not ported yet: it comes with the dry-run
-accounting, after LM decoding.
+:data:`PEAK_BF16_FLOPS`. :func:`make_production_mesh` builds the dry-run's
+256- and 512-position meshes, whose positions are ``meta`` placeholders:
+the dry-run (:mod:`repro_torch.launch.dryrun`) only accounts for a
+placement over them. The reference sets a forced host device count before
+JAX starts (``REPRO_DRYRUN_DEVICES``); the port has no device-count lock,
+so it needs no such variable.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ class Mesh:
       shape: ``{axis: size}`` in axis order (``mesh.shape["data"]`` as in
         JAX).
       devices: one ``torch.device`` per position, in mesh (row-major) order.
+      moved_bytes: bytes the ring's moves have copied between positions
+        on this mesh (all positions together).
     """
 
     def __init__(self, devices: Sequence[DeviceLike], shape: Sequence[int],
@@ -56,6 +61,7 @@ class Mesh:
         self.shape = dict(zip(axis_names, shape))
         self.devices = [_indexed(torch.device(d)) for d in devices]
         self._copy_streams: dict = {}
+        self.moved_bytes = 0
 
     @property
     def size(self) -> int:
@@ -115,6 +121,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return Mesh(devices, shape, axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[DeviceLike]] = None
+                         ) -> Mesh:
+    """(16, 16) ("data", "model") = 256 positions on one pod; (2, 16, 16)
+    ("pod", "data", "model") = 512 over two. Positions default to
+    ``meta`` placeholders (nothing runs there); ``devices=`` may pass real
+    cards or virtual shards."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = [torch.device("meta")] * math.prod(shape)
+    return Mesh(devices, shape, axes)
+
+
 def make_host_mesh(device: DeviceLike = "cuda") -> Mesh:
     """``(n, 1)`` over ("data", "model"): every visible card for
     ``device="cuda"`` (raises without one), the one CPU for ``"cpu"``."""
@@ -156,6 +176,9 @@ def make_lane_mesh(num_devices: Optional[int] = None,
 
 # NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700 W) data-sheet peaks for the
 # roofline, per card: dense bf16 tensor cores, HBM, NVLink each way.
+# NVLINK_BW stands in for the reference's ICI_BW: one link figure for every
+# mesh axis, as the reference uses one.
 PEAK_BF16_FLOPS = 989e12  # FLOP/s
 HBM_BW = 3.35e12  # B/s
 NVLINK_BW = 450e9  # B/s each way
+ICI_BW = NVLINK_BW

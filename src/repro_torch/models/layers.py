@@ -9,8 +9,11 @@ MoE router in fp32, attention scores in fp32 from compute-dtype operands
 (the reference's ``preferred_element_type=float32``; upcasting ``q`` and
 ``k`` gives the same products), probabilities back to ``v``'s dtype.
 
-The reference's ``constrain`` / ``_tp_size`` are placement hints for a
-device mesh; the single-card port has no counterpart here.
+The reference's ``constrain`` calls are placement hints for a device
+mesh; the port's blocks make none (the dry-run reads placements from the
+policy). :func:`_tp_size` is the reference's: the "model" axis of the
+global mesh, which picks head- or sequence-parallel attention in the
+dry-run's accounting.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import TP, axis_size, get_global_mesh
 from repro_torch.models.config import (
     ATTN_BIDIR,
     ATTN_CHUNKED,
@@ -29,6 +33,12 @@ from repro_torch.models.config import (
 )
 
 NEG_INF = -1e30
+
+
+def _tp_size() -> int:
+    """Positions along "model" of the global mesh (1 without one)."""
+    mesh = get_global_mesh()
+    return axis_size(mesh, TP) if mesh is not None else 1
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -11,7 +11,10 @@ leaf of a period is stacked on a leading ``num_periods`` axis, one
 ``cfg.remat`` checkpoints each period
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``). The
 reference's ``constrain`` calls are placement hints for a device mesh;
-the single-card port has no counterpart.
+the single-card port has no counterpart. :func:`abstract_params` is
+:func:`init_params` under the process's :func:`fake_mode`: tensors with a
+shape and dtype and no storage, the dry-run's counterpart of
+``jax.eval_shape``.
 
 Three entry points:
   forward_lm       decoder-only training forward (vision prefix optional)
@@ -178,6 +181,26 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
         # statistics; adam_update computes in fp32 and casts back).
         params = _tree_map(lambda a: a.to(torch.bfloat16), params)
     return params
+
+
+_FAKE_MODE = None
+
+
+def fake_mode():
+    """The process's ``FakeTensorMode`` (made at first use): every abstract
+    tree of the dry-run is made in it, so trees made apart combine."""
+    global _FAKE_MODE
+    if _FAKE_MODE is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        _FAKE_MODE = FakeTensorMode()
+    return _FAKE_MODE
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as fake tensors (no allocation): dry-run input."""
+    with fake_mode():
+        return init_params(torch.Generator().manual_seed(0), cfg)
 
 
 def _init_params_f32(gen, cfg: ModelConfig, vp: int) -> dict:
@@ -405,34 +428,40 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     count = cfg.num_periods
     for period_params, period_cache in zip(_unstack(params["layers"], count),
                                            _unstack(cache, count)):
-        for i, spec in enumerate(cfg.pattern):
-            blk_p = period_params[f"block_{i}"]
-            blk_c = period_cache[f"block_{i}"]
-            if spec.kind == MAMBA:
-                y, _ = mamba_decode(
-                    blk_p["mamba"],
-                    rms_norm(x, blk_p["mamba"]["ln"], cfg.norm_eps), blk_c,
-                    cfg)
-            else:
-                y, _ = attention_decode(
-                    blk_p["attn"],
-                    rms_norm(x, blk_p["attn"]["ln"], cfg.norm_eps), blk_c,
-                    pos, cfg, spec)
-            x = x + y
-            if cfg.is_encdec and "cross" in blk_p:
-                x = x + cross_attention_decode(
-                    blk_p["cross"],
-                    rms_norm(x, blk_p["cross"]["ln"], cfg.norm_eps), blk_c,
-                    cfg)
-            if "ffn" in blk_p:
-                z = rms_norm(x, blk_p["ffn"]["ln"], cfg.norm_eps)
-                if spec.moe and cfg.moe is not None:
-                    x = x + moe_ffn(blk_p["ffn"], z, cfg)
-                else:
-                    x = x + mlp(blk_p["ffn"], z, cfg)
+        x = _decode_period(period_params, period_cache, x, pos, cfg)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x[:, 0, :] @ _head(params).to(x.dtype)).float()
     return logits, cache
+
+
+def _decode_period(period_params: dict, period_cache: dict, x: torch.Tensor,
+                   pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One period of :func:`decode_step`: each block's one-token step
+    against its slice of the cache (written in place)."""
+    for i, spec in enumerate(cfg.pattern):
+        blk_p = period_params[f"block_{i}"]
+        blk_c = period_cache[f"block_{i}"]
+        if spec.kind == MAMBA:
+            y, _ = mamba_decode(
+                blk_p["mamba"],
+                rms_norm(x, blk_p["mamba"]["ln"], cfg.norm_eps), blk_c, cfg)
+        else:
+            y, _ = attention_decode(
+                blk_p["attn"],
+                rms_norm(x, blk_p["attn"]["ln"], cfg.norm_eps), blk_c, pos,
+                cfg, spec)
+        x = x + y
+        if cfg.is_encdec and "cross" in blk_p:
+            x = x + cross_attention_decode(
+                blk_p["cross"],
+                rms_norm(x, blk_p["cross"]["ln"], cfg.norm_eps), blk_c, cfg)
+        if "ffn" in blk_p:
+            z = rms_norm(x, blk_p["ffn"]["ln"], cfg.norm_eps)
+            if spec.moe and cfg.moe is not None:
+                x = x + moe_ffn(blk_p["ffn"], z, cfg)
+            else:
+                x = x + mlp(blk_p["ffn"], z, cfg)
+    return x
 
 
 def _sinusoidal_at(pos: torch.Tensor, dim: int, dtype) -> torch.Tensor:

@@ -233,12 +233,14 @@ any phase fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -2047,9 +2049,15 @@ def phase_kernel_lanes(torch, tiled) -> dict:
     each lane against the plain version of its operands at every shape of
     LANE_FWD_SHAPES / LANE_BWD_SHAPES (one launch for all lanes, or one
     per column chunk), timed per call and per lane, with the split count
-    each plans."""
+    each plans, beside B times one lane's bound, the plain version over
+    the lanes in turn and the batched library yardstick (materialised
+    ``cdist``, the profile and ``matmul``)."""
+    from repro_torch.kernels import registry
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kappa = registry.get_kernel("matern32").kappa_from_r2
+    dkappa = registry.get_kernel("matern32").dkappa_dr2
     out = {tiled.KERNEL_NAME: {}, tiled.BWD_KERNEL_NAME: {}}
     bad = []
     for label, n, m, d, s in LANE_FWD_SHAPES + LANE_BWD_SHAPES:
@@ -2070,6 +2078,13 @@ def phase_kernel_lanes(torch, tiled) -> dict:
                     return tiled.kernel_mvm_bwd_plain(
                         u[i], u[i], torch.cat([g[i], v[i]], 1),
                         torch.cat([v[i], g[i]], 1), "matern32")
+
+                def library(u=u, g=g, v=v):
+                    dt = (torch.cat([g, v], -1)
+                          @ torch.cat([v, g], -1).transpose(1, 2)) \
+                        * dkappa(torch.cdist(u, u) ** 2)
+                    return 2.0 * (dt.sum(-1, keepdim=True) * u - dt @ u)
+                one = bound_bwd(n, n, d, 2 * s, 4 * (2 * n * d + 2 * n * s))
                 splits = tiled.bwd_split_plan(n, n, sms, lanes)
                 tol = TOL_BWD_VS_PLAIN
             else:
@@ -2082,6 +2097,10 @@ def phase_kernel_lanes(torch, tiled) -> dict:
 
                 def plain(i, u=u, w=w, v=v):
                     return tiled.kernel_mvm_plain(u[i], w[i], v[i], "matern32")
+
+                def library(u=u, w=w, v=v):
+                    return kappa(torch.cdist(u, w) ** 2) @ v
+                one = bound(n, m, d, s)
                 splits = tiled.split_plan(n, m, s, sms, lanes)
                 tol = TOL_VS_PLAIN
             got = call()
@@ -2095,7 +2114,13 @@ def phase_kernel_lanes(torch, tiled) -> dict:
             rec[key] = {"splits": splits, "rel_err_per_lane": errs,
                         "tol_rel": tol}
             ms = time_ms(call, 10 if fused else 20)
-            rec[key].update({"ms": ms, "ms_per_lane": ms / lanes})
+            rec[key].update({
+                "ms": ms, "ms_per_lane": ms / lanes,
+                "bound_ms": lanes * one["bound_ms"],
+                "bound_by": one["bound_by"], "bound_unit": one["bound_unit"],
+                "plain_ms": time_ms(lambda: [plain(i) for i in range(lanes)],
+                                    2),
+                "library_ms": time_ms(library, 3)})
             if not all(math.isfinite(e) and e <= tol for e in errs):
                 bad.append((label, lanes, errs))
         emit(rec)
@@ -2806,13 +2831,71 @@ def phase_distributed(torch, tiled, registry) -> tuple:
     return path, {"ring_pol": ring_recs, "tiles": tiles["fwd"]}, tiles["bwd"]
 
 
+def _lanes_bitwise(torch, got, want) -> bool:
+    """Two lists of lane results are bitwise equal: every state tensor and
+    the iteration, residual and hyperparameter histories."""
+    import numpy as np
+
+    from repro_torch import lanes as lanes_mod
+
+    def leaves(tree):
+        out = []
+        lanes_mod.tree_map(out.append, tree)
+        return out
+
+    for a, b in zip(got, want, strict=True):
+        if not all(torch.equal(p, q) for p, q in
+                   zip(leaves(a.state), leaves(b.state), strict=True)):
+            return False
+        if not all(np.array_equal(a.history[k], b.history[k])
+                   for k in ("iters", "res_y", "res_z", "hypers")):
+            return False
+    return True
+
+
+def _device_busy(torch, fn) -> dict:
+    """``fn()`` under ``torch.profiler``: its wall seconds, the seconds in
+    which at least one kernel ran on the card (the union of the kernels'
+    intervals: kernels of two streams that overlap count once), the
+    kernels' summed seconds and the card's idle share."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    union, start, end = 0.0, None, None
+    for a, b in spans:
+        if end is None or a > end:
+            union += 0.0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    union += 0.0 if end is None else end - start
+    if not spans:
+        return {"wall_s": wall, "device_busy_s": "not measured"}
+    return {"wall_s": wall, "device_busy_s": union / 1e6,
+            "device_kernel_sum_s": sum(b - a for a, b in spans) / 1e6,
+            "device_idle_share": 1.0 - union / 1e6 / wall}
+
+
 def _sharded_lanes(torch, tiled, x, y) -> tuple:
     """fit_batch over ``DIST_LANE_DEVICES`` virtual cuda:0 lane positions,
     4 CG lanes at full pol (Matérn-3/2 x 2 seeds x tolerances 0.01 / 0.05,
-    phase 8 (f)'s config), against the unsharded fit_batch; then the batch
-    CLI with ``--shard-lanes`` over the cards it finds."""
+    phase 8 (f)'s config), whose groups run at once (a thread and a stream
+    each): counted once, then timed beside the unsharded fit_batch and the
+    groups run alone in turn (``fit_batch`` over a group's lanes, no mesh),
+    each warmed up once, then timed in the order ABC CBA and profiled once
+    each (the card's busy seconds); every concurrent run must be bitwise
+    the groups alone, and near the unsharded run. Then the batch CLI with
+    ``--shard-lanes`` over the cards it finds."""
     import numpy as np
 
+    from repro_torch import lanes as lanes_mod
     from repro_torch.core.driver import fit_batch
     from repro_torch.launch import batch
     from repro_torch.launch.mesh import make_lane_mesh
@@ -2828,10 +2911,24 @@ def _sharded_lanes(torch, tiled, x, y) -> tuple:
     nums = stack_numerics([batch.cell_numerics(c, args) for c in members])
     seeds = [c.seed for c in members]
     mesh = make_lane_mesh(devices=[torch.device("cuda", 0)] * DIST_LANE_DEVICES)
-    sharded, seconds, counts = _counted(
-        torch, tiled, lambda: fit_batch(x, y, cfg, seeds, numerics=nums,
-                                        mesh=mesh))
     per = len(members) // DIST_LANE_DEVICES
+
+    def concurrent():
+        return fit_batch(x, y, cfg, seeds, numerics=nums, mesh=mesh)
+
+    def unsharded():
+        return fit_batch(x, y, cfg, seeds, numerics=nums)
+
+    def alone():
+        out = []
+        for g in range(DIST_LANE_DEVICES):
+            sl = slice(g * per, (g + 1) * per)
+            out += fit_batch(x, y, cfg, seeds[sl],
+                             numerics=lanes_mod.tree_map(lambda t: t[sl], nums))
+        return out
+
+    plain, alone_lanes = unsharded(), alone()
+    sharded, seconds, counts = _counted(torch, tiled, concurrent)
     expected = dict.fromkeys(tiled.LAUNCHES, 0)
     for g in range(DIST_LANE_DEVICES):
         part = expected_lane_launches(tiled, cfg, sharded[g * per:(g + 1) * per],
@@ -2839,10 +2936,35 @@ def _sharded_lanes(torch, tiled, x, y) -> tuple:
         for k in expected:
             expected[k] += part[k]
     _check_counts("sharded lanes", counts, expected, problems)
-    t0 = time.perf_counter()
-    plain = fit_batch(x, y, cfg, seeds, numerics=nums)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    runs = {"unsharded": unsharded, "groups_alone_in_turn": alone,
+            "concurrent": concurrent}
+
+    def counters():
+        """What can stall a run besides its own work: the allocator's
+        device allocations and retries, the collector's passes."""
+        mem = torch.cuda.memory_stats()
+        return [mem.get("num_device_alloc", 0), mem.get("num_alloc_retries", 0),
+                *(g["collections"] for g in gc.get_stats())]
+
+    times = {name: [] for name in runs}
+    stalls = {name: [] for name in runs}
+    bitwise = [_lanes_bitwise(torch, sharded, alone_lanes)]
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            before = counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runs[name]()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            stalls[name].append(dict(zip(
+                ("device_allocs", "alloc_retries", "gc_gen0", "gc_gen1",
+                 "gc_gen2"), (b - a for a, b in zip(before, counters())))))
+            if name == "concurrent":
+                bitwise.append(_lanes_bitwise(torch, out, alone_lanes))
+    if not all(bitwise):
+        problems.append(f"sharded lanes not bitwise the groups alone: {bitwise}")
+    profiled = {name: _device_busy(torch, fn) for name, fn in runs.items()}
     lanes = []
     for c, a, b in zip(members, plain, sharded):
         differ = int(np.sum(a.history["iters"] != b.history["iters"]))
@@ -2854,9 +2976,17 @@ def _sharded_lanes(torch, tiled, x, y) -> tuple:
         if differ or not err <= TOL_LANE_VS_SINGLE:
             problems.append(f"sharded lane s{c.seed}{c.tag}: {differ} steps "
                             f"differ, hypers {err}")
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
     emit({"phase": "distributed", "run": "e_sharded_lanes",
           "lane_devices": DIST_LANE_DEVICES, "lanes": len(members),
-          "sharded_s": seconds, "unsharded_s": plain_s,
+          "counted_concurrent_s": seconds, "times_s": times,
+          "mean_s": mean, "timed_order": "ABC CBA", "card": nvidia_smi(),
+          "stalls": stalls, "threads": threading.active_count(),
+          "profiled": profiled,
+          "concurrent_vs_alone": mean["concurrent"]
+          / mean["groups_alone_in_turn"],
+          "concurrent_vs_unsharded": mean["concurrent"] / mean["unsharded"],
+          "bitwise_groups_alone": bitwise,
           "launches": counts[0], "expected_launches": expected,
           "lanes_vs_unsharded": lanes})
     shutil.rmtree(args.out, ignore_errors=True)

@@ -16,6 +16,8 @@ one lane-stacked run.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence
@@ -57,7 +59,11 @@ from repro_torch.solvers.adaptive import (
     broadcast_policy,
     resolve_horizon,
 )
-from repro_torch.solvers.base import broadcast_numerics, max_iters_from_epochs
+from repro_torch.solvers.base import (
+    broadcast_numerics,
+    max_iters_from_epochs,
+    taking_turns,
+)
 from repro_torch.solvers.sgd import draw_schedule
 from repro_torch.train.adam import AdamConfig, adam_init, adam_update
 
@@ -95,8 +101,11 @@ class FitResult:
 
 
 def _sync(x: torch.Tensor) -> None:
+    """Wait for the work issued so far on the current stream of ``x``'s
+    device: the caller's, or a lane group's own in a sharded
+    :func:`fit_batch`, never the other groups' on the same card."""
     if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
+        torch.cuda.current_stream(x.device).synchronize()
 
 
 def _empty_history() -> dict:
@@ -375,14 +384,20 @@ def fit_batch(
     runs a contiguous group of B / size lanes (its states, numerics,
     policy, schedules and a copy of x and y on its device) through the
     same lane-stacked rounds, and the histories merge in lane order. The
-    freeze mask keeps every lane's trajectory its own; a group's column
-    split plans round unlike the whole batch's, so per-lane results agree
-    with the unsharded run to fp32 accumulation order. The groups run in
-    turn: each round issues one group after another, and every group's
-    round reads the host (inside CG and at its end) before the next
-    starts, so the cards do not overlap, and k cards take about as long
-    as one card running all k groups. Sharding spreads the lanes' memory
-    over the cards; it gives no multi-card speed-up yet.
+    groups run at once, as the reference's one sharded program does: each
+    round starts one host thread per position, which runs its group's
+    round on a CUDA stream of its own on the group's device (on the CPU,
+    the thread alone), and joins them all before the histories merge; an
+    error in any group is raised after every thread has ended. The
+    threads take turns to issue work: a group gives up its turn for each
+    host read (the solvers' stopping read, the round's metrics), which
+    waits on its own stream only, so another group issues and its kernels
+    run meanwhile, on the same card or on another. Each lane's arithmetic
+    is the one its group runs alone (``fit_batch`` over the group's lanes,
+    no mesh); a group's column split plans round unlike the whole batch's,
+    so per-lane results agree with the unsharded run to fp32 accumulation
+    order. A mesh of one position runs as ``mesh=None`` does, without
+    threads.
 
     ``steps_per_round <= 0`` (default) runs all steps in one round. No
     checkpoints; per-lane eval once at the end when ``x_test`` is given.
@@ -422,8 +437,8 @@ def fit_batch(
     while step < cfg.num_steps:
         k = _round_size(step, cfg.num_steps, steps_per_round)
         ts = time.perf_counter()
-        rounds = [grp.run(cfg, k, None if batch_idx is None
-                          else batch_idx[done:done + k]) for grp in groups]
+        rounds = _run_round(groups, cfg, k, None if batch_idx is None
+                            else batch_idx[done:done + k])
         dt = time.perf_counter() - ts
         for grp, metrics in zip(groups, rounds):
             for local in range(grp.size):
@@ -462,6 +477,66 @@ def fit_batch(
     return results
 
 
+def _run_round(groups: list, cfg: OuterConfig, k: int, batch_idx) -> list:
+    """One round of ``k`` steps of every lane group; their host metrics in
+    group order. One group runs in this thread on the caller's stream;
+    several run at once, one thread each on the group's own stream
+    (:meth:`_LaneGroup.own_stream`), taking turns to issue work
+    (:func:`repro_torch.solvers.base.taking_turns`). Every thread is
+    joined before the first group's error (in group order) is raised."""
+    if len(groups) == 1:
+        return [groups[0].run(cfg, k, batch_idx)]
+    turn = threading.Lock()
+    for grp in groups:
+        grp.share_host(turn)
+    out, errors = [None] * len(groups), [None] * len(groups)
+
+    def work(i: int) -> None:
+        try:
+            with groups[i].own_stream():
+                out[i] = groups[i].run(cfg, k, batch_idx)
+        except BaseException as err:  # raised below, once all are joined
+            errors[i] = err
+
+    threads = [threading.Thread(target=work, args=(i,),
+                                name=f"fit_batch-group-{i}")
+               for i in range(len(groups))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for err in errors:
+        if err is not None:
+            raise err
+    return out
+
+
+# One stream per (device, lane position), kept across fit_batch calls: the
+# caching allocator pools memory per stream, so a fresh stream each call
+# would allocate its round's working set from the device anew.
+_group_streams: dict = {}
+_group_streams_lock = threading.Lock()
+
+
+def _group_stream(device: torch.device, index: int):
+    with _group_streams_lock:
+        key = (device, index)
+        if key not in _group_streams:
+            _group_streams[key] = torch.cuda.Stream(device)
+        return _group_streams[key]
+
+
+def _record(tensors, stream) -> None:
+    """Mark every CUDA tensor of ``tensors`` (trees) as used on ``stream``:
+    the caching allocator then hands its memory out again only after the
+    work issued there so far."""
+    for tree in tensors:
+        if tree is not None:
+            lanes_mod.tree_map(
+                lambda t: t.record_stream(stream) if t.is_cuda else None,
+                tree)
+
+
 class _LaneGroup:
     """The contiguous lanes ``[lo, lo + size)`` of a ``fit_batch`` on one
     device: their generators, lane-stacked states, numerics and policy,
@@ -490,22 +565,55 @@ class _LaneGroup:
                          lanes_mod.tree_map(lambda t: t[sl], numerics))
         self.policy = (None if policy is None else
                        lanes_mod.tree_map(lambda t: t[sl].to(device), policy))
+        self.home = self.stream = self.turn = None
+
+    def share_host(self, turn: threading.Lock) -> None:
+        """Run beside other groups: issue work only while holding ``turn``
+        (shared by the round's groups), on the stream of the group's
+        position on its device (none on the CPU), ordered against the
+        calling thread's current stream there, which made the states and
+        reads the results (see :meth:`own_stream`)."""
+        self.turn = turn
+        if self.stream is None and self.device.type == "cuda":
+            self.home = torch.cuda.current_stream(self.device)
+            self.stream = _group_stream(self.device, self.lo // self.size)
+
+    @contextlib.contextmanager
+    def own_stream(self):
+        """Run the block on the group's device and stream, after the work
+        the caller's stream has issued so far, and order the caller's
+        stream after it; the group's tensors are recorded on each stream
+        that uses them. On the CPU the block runs as it is."""
+        if self.stream is None:
+            yield
+            return
+        tensors = (self.x, self.y, self.states, self.numerics, self.policy)
+        self.stream.wait_stream(self.home)
+        _record(tensors, self.stream)
+        try:
+            with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+                yield
+        finally:
+            self.home.wait_stream(self.stream)
+            _record((self.states, self.policy), self.home)
 
     def run(self, cfg: OuterConfig, k: int, batch_idx) -> dict:
-        """One round of ``k`` steps; its metrics read to the host."""
+        """One round of ``k`` steps, issued in the group's turns when it
+        shares the host; its metrics read to the host."""
         sched = (None if batch_idx is None else
                  [np.asarray(b)[self.lo:self.lo + self.size]
                   for b in batch_idx])
-        if self.policy is None:
-            self.states, metrics = outer_scan(
-                self.states, self.x, self.y, cfg, k, lanes=True,
-                numerics=self.numerics, generators=self.gens,
-                batch_idx=sched)
-        else:
-            (self.states, self.policy), metrics = outer_scan(
-                self.states, self.x, self.y, cfg, k, lanes=True,
-                numerics=self.numerics, budget=self.policy,
-                generators=self.gens, batch_idx=sched)
+        with taking_turns(self.turn):
+            if self.policy is None:
+                self.states, metrics = outer_scan(
+                    self.states, self.x, self.y, cfg, k, lanes=True,
+                    numerics=self.numerics, generators=self.gens,
+                    batch_idx=sched)
+            else:
+                (self.states, self.policy), metrics = outer_scan(
+                    self.states, self.x, self.y, cfg, k, lanes=True,
+                    numerics=self.numerics, budget=self.policy,
+                    generators=self.gens, batch_idx=sched)
         _sync(self.states.carry_v)
         return _host_metrics(metrics)
 

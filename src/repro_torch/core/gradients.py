@@ -95,7 +95,7 @@ def mll_grad_estimate(
     else:
         raise ValueError(f"unknown estimator {estimator!r}")
     weights = torch.cat([
-        torch.tensor([0.5], dtype=v.dtype, device=v.device),
+        torch.full((1,), 0.5, dtype=v.dtype, device=v.device),
         torch.full((s,), -0.5 / s, dtype=v.dtype, device=v.device),
     ])
     leaves = [p.detach().requires_grad_(True) for p in params.leaves]

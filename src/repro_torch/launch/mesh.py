@@ -156,9 +156,10 @@ def make_lane_mesh(num_devices: Optional[int] = None,
     (``core.driver.fit_batch(mesh=...)``): lanes are independent, so the
     sweep runs one lane-stacked program per position with nothing
     exchanged on the hot path. ``fit_batch`` runs the positions' groups
-    in turn, so the cards do not overlap yet. ``devices`` when given (``num_devices``, if
-    also given, must match its length); else ``num_devices`` (default:
-    all) visible cards.
+    at once, a host thread and a CUDA stream each, so the cards (or
+    virtual positions on one card) overlap. ``devices`` when given
+    (``num_devices``, if also given, must match its length); else
+    ``num_devices`` (default: all) visible cards.
     """
     if devices is not None:
         if num_devices is not None and num_devices != len(devices):

@@ -25,7 +25,9 @@ one per lane.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -123,8 +125,11 @@ def broadcast_numerics(num: SolverNumerics, lanes: int) -> SolverNumerics:
 
 
 def lane_numerics(num: SolverNumerics, lanes: int, device) -> SolverNumerics:
-    """(lanes,) fp32 leaves on ``device``: what a lane-stacked solve reads."""
-    return SolverNumerics(*(v.to(device=device, dtype=torch.float32)
+    """(lanes,) fp32 leaves on ``device``: what a lane-stacked solve reads.
+    Host leaves are copied without waiting for the device (the copy is
+    staged at once), so a solve's set-up does not drain the stream."""
+    return SolverNumerics(*(v.to(device=device, dtype=torch.float32,
+                                 non_blocking=True)
                             for v in broadcast_numerics(num, lanes)))
 
 
@@ -320,17 +325,60 @@ def as_lanes(op, b: torch.Tensor, v0: Optional[torch.Tensor],
                       single, top)
 
 
+# Lane groups that share one host (``core.driver.fit_batch(mesh=)``, a
+# thread each) take turns to issue work: a thread holds the round's turn
+# while it issues and gives it up for each blocking read, so that another
+# group issues meanwhile and the threads do not hand the interpreter lock
+# back and forth op by op.
+_turns = threading.local()
+
+
+@contextlib.contextmanager
+def taking_turns(turn: Optional[threading.Lock]):
+    """Hold ``turn`` (shared by the lane groups of a round) for the block,
+    giving it up at each :func:`host_read`; nothing when ``turn`` is None."""
+    if turn is None:
+        yield
+        return
+    with turn:
+        _turns.lock = turn
+        try:
+            yield
+        finally:
+            _turns.lock = None
+
+
+@contextlib.contextmanager
+def host_read():
+    """Give up this thread's turn, if it holds one (:func:`taking_turns`),
+    for the block: a read that waits on the device."""
+    turn = getattr(_turns, "lock", None)
+    if turn is None:
+        yield
+        return
+    _turns.lock = None
+    turn.release()
+    try:
+        yield
+    finally:
+        turn.acquire()
+        _turns.lock = turn
+
+
 def keep_going(go: torch.Tensor, t: torch.Tensor,
                max_iters: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """This iteration's mask and whether any lane runs it: the lanes whose
     own rule ``go`` holds and whose count is below their cap, as
     :func:`lane_active`. One lane's count is the loop's, whose bound is
     that lane's cap, so its mask is ``go`` alone. One device read for all
-    lanes."""
+    lanes, during which the thread gives up its turn (:func:`host_read`)."""
     if go.shape[0] > 1:
         go = torch.logical_and(go, t < max_iters)
-        return go, bool(go.any())
-    return go, bool(go)
+        flag = go.any()
+    else:
+        flag = go
+    with host_read():
+        return go, bool(flag)
 
 
 def finish(sysl: LaneSystem, v: torch.Tensor, res_y: torch.Tensor,

@@ -110,9 +110,10 @@ def adam_update(grads: Params, state: AdamState, params: Params,
     step = state.step + 1
     p_leaves = _leaves(params)
     device = p_leaves[0].device
-    step_f = torch.tensor(float(step), dtype=torch.float32, device=device)
-    b1t = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=device) ** step_f
-    b2t = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32, device=device) ** step_f
+    # Filled on the device: a copy from the host would wait for the stream.
+    step_f = torch.full((), float(step), dtype=torch.float32, device=device)
+    b1t = 1.0 - torch.full((), cfg.b1, dtype=torch.float32, device=device) ** step_f
+    b2t = 1.0 - torch.full((), cfg.b2, dtype=torch.float32, device=device) ** step_f
 
     new_p, new_m, new_v = [], [], []
     for g, m, v, p in zip(g_leaves, _leaves(state.mu), _leaves(state.nu),

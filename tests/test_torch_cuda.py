@@ -810,6 +810,53 @@ def test_cuda_gp_step_on_8_shards_matches_1():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "sgd"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_cuda_lane_groups_at_once_bitwise_their_groups_alone(k, solver):
+    """On a card: fit_batch over k virtual cuda:0 lane positions (the
+    groups at once, a thread and a stream each) against fit_batch over
+    each group's lanes alone with no mesh: every state tensor and the
+    iteration, residual and hyperparameter histories bitwise equal."""
+    _cuda_or_skip()
+    from repro_torch import lanes as lanes_mod
+    from repro_torch.core.driver import fit_batch
+    from repro_torch.core.outer import OuterConfig
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.solvers import stack_numerics
+    from repro_torch.solvers.base import numerics_of
+
+    n, d, lanes = 1000, 3, 4
+    x, y = (torch.tensor(a, device="cuda") for a in _draws(36, (n, d), (n,)))
+    if solver == "cg":
+        base = dict(name="cg", max_epochs=30, precond_rank=0)
+        grid = [dict(tolerance=t) for t in (0.01, 0.05, 0.02, 0.1)]
+    else:
+        base = dict(name="sgd", tolerance=0.01, max_epochs=3, batch_size=100)
+        grid = [dict(learning_rate=lr) for lr in (2.0, 5.0, 3.0, 4.0)]
+    cfg = OuterConfig(estimator="pathwise", warm_start=True, num_steps=3,
+                      num_probes=8, num_rff_pairs=64,
+                      solver=SolverConfig(**base), backend="cuda")
+    nums = stack_numerics([numerics_of(SolverConfig(**base, **g))
+                           for g in grid])
+    seeds = list(range(40, 40 + lanes))
+    got = fit_batch(x, y, cfg, seeds, numerics=nums, mesh=make_lane_mesh(
+        devices=[torch.device("cuda", 0)] * k))
+    per = lanes // k
+    for g in range(k):
+        sl = slice(g * per, (g + 1) * per)
+        alone = fit_batch(x, y, cfg, seeds[sl],
+                          numerics=lanes_mod.tree_map(lambda t: t[sl], nums))
+        for i, want in enumerate(alone):
+            a, b = [], []
+            lanes_mod.tree_map(a.append, got[g * per + i].state)
+            lanes_mod.tree_map(b.append, want.state)
+            assert all(torch.equal(p, q) for p, q in zip(a, b, strict=True))
+            for key in ("iters", "res_y", "res_z", "hypers"):
+                np.testing.assert_array_equal(got[g * per + i].history[key],
+                                              want.history[key])
+
+
+@pytest.mark.cuda
 def test_cuda_distributed_ap_tracks_its_residual():
     """On a card: distributed_ap_sweeps over 8 virtual shards; the tracked
     residual against b - H v through the one-launch h_mvm (1e-3, the

@@ -225,6 +225,20 @@ Phases, each printing JSON lines:
    accounting's rotation bytes per position beside the bytes the ring's
    moves copied. The 256-position production mesh is accounted only.
 
+16. surface (since the public-surface slice), after train: the names the
+   port exports as the reference does, imported from their package paths
+   as user code would; ``PROFILES`` and the named profiles
+   (``rbf_from_r2``, ``matern{12,32,52}_from_r2``) on r2 of 1024 x 12150
+   pol rows on the card, bitwise against ``s^2 kappa(r2)`` of the
+   registry; train run (a)'s state (full pol, 64 probes, 1000 RFF pairs,
+   20 steps) and a `HyperParams` saved in one tree through
+   ``repro_torch.distributed.save_checkpoint`` and restored onto CUDA
+   templates, every leaf bitwise and on the card; then the state alone
+   saved and one more CG step resumed from it through ``fit(ckpt_dir=)``,
+   with the launch counts set to 0 just before it and read just after
+   (both kernels, as many as the step's history accounts for), bitwise
+   equal to the same step from the state in memory. Under 15 s.
+
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
 line, when there is no CUDA device, when run outside the repository, or when
@@ -3758,6 +3772,144 @@ def phase_dryrun(torch, tiled, smi: str) -> list:
     return [counts]
 
 
+def phase_surface(torch, tiled, smi: str, args, run) -> tuple:
+    """Phase 16: the reference's public names in the port, named profiles
+    on the card, a tree checkpoint of run (a)'s state restored onto the
+    card, and one CG step resumed from a checkpoint through ``fit``,
+    counted, bitwise equal to the step from the state in memory. Runs on
+    ``args.device`` (the card; ``cpu`` for a dry run, where no launch is
+    counted)."""
+    from dataclasses import replace
+
+    import repro_torch
+    from repro_torch.core import fit, init_outer_state
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.distributed import (DP, FSDP, TP,  # noqa: F401
+                                         constrain, load_metadata,
+                                         restore_checkpoint, save_checkpoint)
+    from repro_torch.gp.hyperparams import HyperParams
+    from repro_torch.gp.kernels_math import (PROFILES, matern12_from_r2,
+                                             matern32_from_r2,
+                                             matern52_from_r2, rbf_from_r2,
+                                             scaled_sqdist)
+    from repro_torch.kernels.registry import get_kernel
+    from repro_torch.solvers import make_budget_policy, pivoted_cholesky  # noqa: F401
+
+    problems = []
+    core_names = {}
+    exec("from repro_torch.core import *", core_names)  # as user code does
+    missing = sorted(set(repro_torch.core.__all__) - set(core_names))
+    if missing:
+        problems.append(f"from repro_torch.core import * lacks {missing}")
+    state, cfg = run.fit.state, run.cfg
+    ds = load_dataset(args.dataset, max_n=args.max_n, device=args.device)
+    x, y = ds.x_train, ds.y_train  # run (a)'s rows: CG pads nothing
+    device = x.device
+
+    # Named profiles on the card against s^2 kappa(r2) of the registry.
+    r2 = scaled_sqdist(x[:1024], x, state.params.lengthscales)
+    signal = state.params.signal
+    named = {"rbf": rbf_from_r2, "matern12": matern12_from_r2,
+             "matern32": matern32_from_r2, "matern52": matern52_from_r2}
+    profiles = {}
+    for name, profile in PROFILES.items():
+        want = (signal ** 2) * get_kernel(name).kappa_from_r2(r2)
+        outs = [profile(r2, signal)] + ([named[name](r2, signal)]
+                                        if name in named else [])
+        err = max(float((o - want).abs().max()) for o in outs)
+        on_card = all(o.device == device for o in outs)
+        profiles[name] = {"max_abs_err": err, "on_card": on_card}
+        if err != 0.0 or not on_card:
+            problems.append(f"profile {name}: err {err}, on card {on_card}")
+    if set(named) - set(PROFILES):
+        problems.append(f"PROFILES lacks {sorted(set(named) - set(PROFILES))}")
+
+    # A tree of run (a)'s state and a HyperParams, restored onto the card.
+    hypers = HyperParams.create(x.shape[1], lengthscale=0.5, signal=1.5,
+                                noise=0.2, kernel="rbf", device=device)
+    tree = {"state": state, "params": hypers}
+    tree_dir, state_dir = CKPT_DIR / "surface_tree", CKPT_DIR / "surface_state"
+    for d in (tree_dir, state_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    _sync_dev(torch, device)
+    t0 = time.perf_counter()
+    save_checkpoint(str(tree_dir), state.step, tree)
+    save_s = time.perf_counter() - t0
+    fresh = init_outer_state(
+        cfg, x, generator=torch.Generator(device=device).manual_seed(1))
+    template = {"state": fresh,
+                "params": HyperParams.create(x.shape[1], kernel="rbf",
+                                             device=device)}
+    t0 = time.perf_counter()
+    back, step = restore_checkpoint(str(tree_dir), template)
+    _sync_dev(torch, device)
+    restore_s = time.perf_counter() - t0
+    got = _state_tensors(back["state"]) + list(back["params"].leaves)
+    want = _state_tensors(state) + list(hypers.leaves)
+    bitwise = len(got) == len(want) and all(
+        torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(got, want))
+    on_card = all(a.device == device for a in got)
+    if not (bitwise and on_card and step == state.step
+            and back["state"].step == state.step
+            and back["params"].kernel == "rbf"):
+        problems.append(f"tree checkpoint: bitwise {bitwise}, on card "
+                        f"{on_card}, step {step}")
+
+    # One more CG step resumed from the state's checkpoint through fit,
+    # against the same step from the state in memory.
+    save_checkpoint(str(state_dir), state.step, state)
+    cfg_next = replace(cfg, num_steps=state.step + 1)
+    _sync_dev(torch, device)
+    tiled.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = fit(x, y, cfg_next, ckpt_dir=str(state_dir),
+                  generator=torch.Generator(device=device).manual_seed(2))
+    _sync_dev(torch, device)
+    resume_s = time.perf_counter() - t0
+    launches = tiled.launch_counts()
+    second_passes = tiled.second_pass_counts()
+    direct = fit(x, y, cfg_next, state=state,
+                 generator=torch.Generator(device=device).manual_seed(2))
+    expected = expected_launches(tiled, resumed.history, "cg", x.shape[1],
+                                 cfg.num_probes)
+    step_bitwise = all(torch.equal(a, b) for a, b in
+                       zip(_state_tensors(resumed.state),
+                           _state_tensors(direct.state)))
+    hypers_bitwise = bool((resumed.history["hypers"]
+                           == direct.history["hypers"]).all())
+    for k, n in expected.items():
+        if launches[k] == 0 or launches[k] != n:
+            problems.append(f"resumed step: {k} launches {launches[k]} != "
+                            f"expected {n}")
+    if not (step_bitwise and hypers_bitwise
+            and resumed.state.step == direct.state.step == state.step + 1):
+        problems.append(f"resumed step: state bitwise {step_bitwise}, "
+                        f"hypers bitwise {hypers_bitwise}")
+    emit({"phase": "surface", "nvidia_smi": smi,
+          "version": repro_torch.__version__, "profiles": profiles,
+          "profile_shape": list(r2.shape),
+          "checkpoint": {"leaves": len(got), "bytes": sum(
+              a.numel() * a.element_size() for a in got),
+              "num_leaves": load_metadata(str(tree_dir))["num_leaves"],
+              "bitwise": bitwise, "on_card": on_card, "save_s": save_s,
+              "restore_s": restore_s},
+          "resume": {"from_step": state.step, "iters":
+                     [int(i) for i in resumed.history["iters"]],
+                     "launches": launches, "expected_launches": expected,
+                     "seconds": resume_s, "state_bitwise": step_bitwise,
+                     "hypers_bitwise": hypers_bitwise},
+          "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches, second_passes
+
+
+def _state_tensors(state) -> list:
+    from repro_torch.checkpoint import state_leaves
+
+    return [t for t in state_leaves(state) if not isinstance(t, int)]
+
+
 def _kernel_entry(name, source, replaces, launches, measured,
                   **extra) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -3890,6 +4042,7 @@ def main() -> int:
         failures.append("http")
     phase_s["http"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
+    fits = None
     try:
         launches, fits = phase_train(torch, tiled)
         path_launches.append(launches)
@@ -3900,6 +4053,17 @@ def main() -> int:
         traceback.print_exc()
         failures.append("train")
     phase_s["train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        if fits is None:
+            raise RuntimeError("the surface phase needs the train phase's "
+                               "run (a)")
+        path_launches.append(phase_surface(torch, tiled, smi,
+                                           *fits["a_pathwise_warm"]))
+    except Exception:
+        traceback.print_exc()
+        failures.append("surface")
+    phase_s["surface"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     try:
         launches, prof_args = phase_large(torch, tiled)

@@ -12,7 +12,9 @@ Entry points default to ``device="cuda"`` and raise when no card is
 present; only an explicit ``device="cpu"`` runs on the CPU.
 """
 
-__all__ = ["resolve_device"]
+__all__ = ["__version__", "resolve_device"]
+
+__version__ = "1.0.0"
 
 
 def __getattr__(name):

@@ -87,10 +87,10 @@ def parse_file(path: Path) -> Tuple[ast.AST, str]:
     return ast.parse(source, filename=str(path)), source
 
 
-def iter_py(root: Path, rel_paths: Sequence[str]) -> Iterator[Path]:
+def iter_py(root: Path, rel_dirs: Sequence[str]) -> Iterator[Path]:
     """Yield each ``root``-relative ``.py`` file, and the ``*.py`` files
     under each ``root``-relative directory, sorted."""
-    for d in rel_paths:
+    for d in rel_dirs:
         base = root / d
         if base.is_file():
             yield base

@@ -1,32 +1,40 @@
-"""Atomic, resumable checkpoints of the port's `OuterState`; the port's own
-copy of ``repro.distributed.checkpoint`` (single process).
+"""Atomic, resumable checkpoints of any tree of tensors; the port's own
+copy of ``repro.distributed.checkpoint`` (single process), re-exported by
+:mod:`repro_torch.distributed.checkpoint`.
 
-Layout, as the reference's: ``<dir>/step_<k>.npz`` holds the state's
+Layout, as the reference's: ``<dir>/step_<k>.npz`` holds the tree's
 leaves positionally as ``leaf_0 .. leaf_{L-1}``, and ``<dir>/step_<k>.json``
 is a sidecar with ``step``, ``num_leaves`` and any caller metadata. Each
 file is written to ``<dir>/tmp.*``, flushed and ``fsync``ed, then renamed,
 so a crash mid-write never corrupts the latest restorable state. The last
 ``keep`` checkpoints are kept.
 
-Leaf order of an :class:`~repro_torch.core.outer.OuterState`:
+Leaves are taken in ``jax.tree.leaves`` order (:func:`tree_leaves`): dict
+values by sorted key, list, tuple and NamedTuple items in order; ``None``
+and strings (the static kernel, kind and estimator names of
+`HyperParams`, `RFFState`, `ProbeState` and `ServableGP`) hold no leaf.
+So a tree saved by either package restores in the other onto a template
+of the same structure. Leaf order of an
+:class:`~repro_torch.core.outer.OuterState`:
 
     params.raw_lengthscales, params.raw_signal, params.raw_noise,
     adam.step, adam.mu (3 leaves as params), adam.nu (3 leaves as params),
     probes: standard ``z`` | pathwise ``rff.z, rff.u, rff.w, w_eps``,
     carry_v, step
 
-(the reference's order without its PRNG ``key`` and ``last_*`` leaves).
-Restoring takes a template state for the static parts (kernel names,
-estimator) and the device and dtypes of the leaves. :func:`save_leaves` and
-:func:`load_leaves` write and read any list of leaves in the same layout
-(the serving artifact's, ``repro_torch.serve.artifact``).
+(the reference's order without its PRNG ``key`` and ``last_*`` leaves; the
+two step counters stored as int32, the reference's dtype). Restoring takes
+a template tree for the structure, the static parts and the device and
+dtype of every leaf. :func:`load_leaves` reads the flat list of leaves
+without a template (the serving artifact's loader, and
+``repro_torch.interop``'s reader of the reference's checkpoints).
 """
 from __future__ import annotations
 
 import json
 import os
 import re
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -74,6 +82,56 @@ def state_from_leaves(template: OuterState, leaves: list) -> OuterState:
         probes=probes, carry_v=rest[0], step=rest[1])
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in the module docstring's order (the order of
+    ``jax.tree.leaves`` on the reference's counterpart)."""
+    if isinstance(tree, OuterState):
+        return [np.int32(leaf) if isinstance(leaf, int) else leaf
+                for leaf in state_leaves(tree)]
+    if tree is None or isinstance(tree, str):
+        return []
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_from_leaves(template, leaves: list):
+    """A tree shaped like ``template`` holding ``leaves`` (in
+    :func:`tree_leaves` order), each on its template leaf's device and in
+    its dtype; ``None`` and strings are the template's."""
+    want = len(tree_leaves(template))
+    if len(leaves) != want:
+        raise ValueError(f"template has {want} leaves, checkpoint has "
+                         f"{len(leaves)}")
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, OuterState):
+            return state_from_leaves(
+                node, [next(it) for _ in range(len(state_leaves(node)))])
+        if node is None or isinstance(node, str):
+            return node
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(item) for item in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(item) for item in node)
+        return _leaf_like(next(it), node)
+
+    return build(template)
+
+
+def _leaf_like(array: np.ndarray, ref):
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(array, dtype=ref.dtype, device=ref.device)
+    if isinstance(ref, (int, float)):
+        return type(ref)(array)
+    return array
+
+
 def _write_atomic(path: str, tmp: str, write) -> None:
     with open(tmp, "wb") as f:
         write(f)
@@ -82,22 +140,17 @@ def _write_atomic(path: str, tmp: str, write) -> None:
     os.rename(tmp, path)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state: OuterState,
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     metadata: Optional[dict] = None, keep: int = 3) -> str:
-    """Atomically persist ``state`` at ``step``. Returns the final path."""
-    return save_leaves(ckpt_dir, step, state_leaves(state),
-                       metadata=metadata, keep=keep)
-
-
-def save_leaves(ckpt_dir: str, step: int, leaves: list,
-                metadata: Optional[dict] = None, keep: int = 3) -> str:
-    """Atomically persist ``leaves`` (tensors, or ints stored as int32) at
-    ``step`` in the layout of the module docstring, keeping the last
-    ``keep`` checkpoints. Returns the final path."""
+    """Atomically persist ``tree`` at ``step`` in the layout of the module
+    docstring (tensor leaves as they are, other leaves as ``np.asarray``
+    gives them), keeping the last ``keep`` checkpoints. Returns the final
+    path."""
+    leaves = tree_leaves(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {f"leaf_{i}": (leaf.detach().cpu().numpy()
                             if isinstance(leaf, torch.Tensor)
-                            else np.asarray(leaf, dtype=np.int32))
+                            else np.asarray(leaf))
               for i, leaf in enumerate(leaves)}
     final = os.path.join(ckpt_dir, f"step_{step}.npz")
     _write_atomic(final, os.path.join(ckpt_dir, f"tmp.{step}.npz"),
@@ -140,13 +193,14 @@ def load_leaves(npz_path: str) -> list:
         return [data[f"leaf_{i}"] for i in range(len(data.files))]
 
 
-def restore_checkpoint(ckpt_dir: str, template: OuterState,
-                       step: Optional[int] = None) -> tuple[OuterState, int]:
-    """Restore the state saved at ``step`` (default: latest) onto the
-    template's devices. Raises FileNotFoundError if there is none."""
+def restore_checkpoint(ckpt_dir: str, template: Any,
+                       step: Optional[int] = None) -> tuple[Any, int]:
+    """Restore the tree saved at ``step`` (default: latest) onto the
+    template's structure, devices and dtypes. Raises FileNotFoundError if
+    there is none."""
     step = _resolve_step(ckpt_dir, step)
     leaves = load_leaves(os.path.join(ckpt_dir, f"step_{step}.npz"))
-    return state_from_leaves(template, leaves), step
+    return tree_from_leaves(template, leaves), step
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:

@@ -1,12 +1,16 @@
-"""Content-hash manifests of checkpoints; the port's own copy of the
-manifest helpers of ``repro.distributed.checkpoint`` (that module imports
-JAX).
+"""Checkpoints of any tree of tensors and their content-hash manifests;
+port of ``repro.distributed.checkpoint`` (that module imports JAX).
+
+:func:`save_checkpoint`, :func:`restore_checkpoint`, :func:`latest_step`
+and :func:`load_metadata` are :mod:`repro_torch.checkpoint`'s: atomic
+``step_<k>.npz`` + JSON sidecar in the reference's format and leaf order,
+so a tree saved by either package restores in the other. The port runs as
+one process, which writes every checkpoint itself.
 
 A manifest lists the files one checkpoint consists of (the ``.npz`` payload
-and its JSON sidecar, as :mod:`repro_torch.checkpoint` writes them) with
-size and sha256, so a reader in another process can verify it fetched
-exactly what the writer published. The format is the reference's, so a
-manifest written by either package verifies in the other.
+and its JSON sidecar) with size and sha256, so a reader in another process
+can verify it fetched exactly what the writer published. The format is the
+reference's, so a manifest written by either package verifies in the other.
 """
 from __future__ import annotations
 
@@ -14,7 +18,16 @@ import hashlib
 import os
 from typing import Optional
 
-from repro_torch.checkpoint import latest_step
+from repro_torch.checkpoint import (
+    latest_step,
+    load_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "load_metadata", "file_sha256", "checkpoint_manifest",
+           "verify_manifest"]
 
 
 def file_sha256(path: str, chunk_bytes: int = 1 << 20) -> str:

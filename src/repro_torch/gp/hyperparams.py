@@ -58,6 +58,21 @@ class HyperParams(NamedTuple):
         return softplus(self.raw_noise)
 
     @property
+    def num_params(self) -> int:
+        """The number of hyperparameters of one system: d lengthscales,
+        signal and noise (a lane-stacked set counts one lane's)."""
+        return int(self.raw_lengthscales.shape[-1]) + 2
+
+    def constrained(self) -> dict:
+        """The constrained hyperparameters by name (lane-stacked sets keep
+        their leading B axis)."""
+        return {
+            "lengthscales": self.lengthscales,
+            "signal": self.signal,
+            "noise": self.noise,
+        }
+
+    @property
     def leaves(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The three raw tensors, in pytree-leaf order of the reference."""
         return (self.raw_lengthscales, self.raw_signal, self.raw_noise)

@@ -13,7 +13,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.gp.hyperparams import HyperParams, resolve_kind
-from repro_torch.kernels.registry import get_kernel
+from repro_torch.kernels.registry import available_kernels, get_kernel
 
 
 def scaled_sqdist(x1: torch.Tensor, x2: torch.Tensor,
@@ -36,9 +36,24 @@ def profile_from_r2(kind: str) -> Callable:
     spec = get_kernel(kind)
 
     def profile(r2: torch.Tensor, signal: torch.Tensor) -> torch.Tensor:
+        """``s^2 kappa(r2)`` of this kernel, elementwise over ``r2``."""
         return (signal**2) * spec.kappa_from_r2(r2)
 
     return profile
+
+
+# Signal-scaled profiles, one per registered kernel, built at import;
+# kernels registered later are reached through profile_from_r2.
+PROFILES: dict[str, Callable] = {
+    name: profile_from_r2(name) for name in available_kernels()
+}
+_PROFILES = PROFILES  # the reference's older name
+
+# Named profiles of the built-in family.
+rbf_from_r2 = PROFILES["rbf"]
+matern12_from_r2 = PROFILES["matern12"]
+matern32_from_r2 = PROFILES["matern32"]
+matern52_from_r2 = PROFILES["matern52"]
 
 
 def kernel_matrix(x1: torch.Tensor, x2: torch.Tensor, params: HyperParams,

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.checkpoint import load_leaves, load_metadata, save_leaves
+from repro_torch.checkpoint import load_leaves, load_metadata, save_checkpoint
 from repro_torch.core.outer import OuterState
 from repro_torch.core.predict import (
     Predictions,
@@ -86,12 +86,6 @@ def servable_predict(model: ServableGP, xq: torch.Tensor) -> Predictions:
             kind=model.kind)
 
 
-def servable_leaves(model: ServableGP) -> list:
-    """The artifact's tensors in the reference's pytree leaf order."""
-    return [model.x, model.correction, model.rff.z, model.rff.u, model.rff.w,
-            *model.params.leaves]
-
-
 def save_servable(ckpt_dir: str, model: ServableGP, step: int = 0,
                   keep: int = 3) -> str:
     """Atomically persist the artifact; returns the checkpoint path."""
@@ -106,8 +100,7 @@ def save_servable(ckpt_dir: str, model: ServableGP, step: int = 0,
         "num_rff_pairs": int(model.rff.z.shape[0]),
         "dtype": str(model.x.dtype).replace("torch.", ""),
     }
-    return save_leaves(ckpt_dir, step, servable_leaves(model), metadata=meta,
-                       keep=keep)
+    return save_checkpoint(ckpt_dir, step, model, metadata=meta, keep=keep)
 
 
 def load_servable(ckpt_dir: str, step: Optional[int] = None,

@@ -8,6 +8,19 @@ from typing import Optional
 import torch
 
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.solvers.adaptive import (
+    AUTO_HORIZON,
+    BudgetPolicy,
+    DecayFit,
+    broadcast_policy,
+    budget_allocate,
+    budget_observe,
+    fit_decay,
+    make_budget_policy,
+    noise_probe,
+    predict_epochs,
+    resolve_horizon,
+)
 from repro_torch.solvers.ap import solve_ap
 from repro_torch.solvers.base import (
     NO_EPOCH_BUDGET,
@@ -21,6 +34,15 @@ from repro_torch.solvers.base import (
 )
 from repro_torch.solvers.cg import solve_cg
 from repro_torch.solvers.operator import HOperator, kernel_mvm_tiled
+from repro_torch.solvers.precond import (
+    AUTO_RANK,
+    PRECOND_DEFAULTS,
+    Preconditioner,
+    PrecondDefaults,
+    build_preconditioner,
+    default_precond,
+    pivoted_cholesky,
+)
 from repro_torch.solvers.sgd import Generators, solve_sgd
 
 SOLVERS = {"cg": solve_cg, "ap": solve_ap, "sgd": solve_sgd}
@@ -100,8 +122,13 @@ def solve_lanes(
                  numerics=numerics)
 
 
-__all__ = ["SOLVERS", "NO_EPOCH_BUDGET", "solve", "solve_lanes", "solve_cg",
-           "solve_ap", "solve_sgd", "SolveResult", "SolverConfig",
-           "SolverNumerics", "numerics_of", "strip_numerics",
+__all__ = ["SOLVERS", "NO_EPOCH_BUDGET", "AUTO_HORIZON", "BudgetPolicy",
+           "DecayFit", "broadcast_policy", "budget_allocate",
+           "budget_observe", "fit_decay", "make_budget_policy",
+           "noise_probe", "predict_epochs", "resolve_horizon", "solve",
+           "solve_lanes", "solve_cg", "solve_ap", "solve_sgd", "SolveResult",
+           "SolverConfig", "SolverNumerics", "numerics_of", "strip_numerics",
            "stack_numerics", "broadcast_numerics", "HOperator",
-           "kernel_mvm_tiled"]
+           "kernel_mvm_tiled", "AUTO_RANK", "PRECOND_DEFAULTS",
+           "Preconditioner", "PrecondDefaults", "build_preconditioner",
+           "default_precond", "pivoted_cholesky"]

@@ -297,6 +297,7 @@ class LaneSystem(NamedTuple):
 
     @property
     def lanes(self) -> int:
+        """B, the number of lanes solved at once."""
         return self.b.shape[0]
 
     def caps(self, iters_per_epoch: float) -> tuple[torch.Tensor, int]:

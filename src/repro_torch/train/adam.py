@@ -80,11 +80,11 @@ def adam_init(params: Params) -> AdamState:
     return AdamState(step=0, mu=zeros(), nu=zeros())
 
 
-def global_norm(leaves, lanes: bool = False) -> torch.Tensor:
-    """sqrt of the sum of squares over all leaves (a list of tensors or a
-    dict tree); per lane ((B,)) for lane-stacked leaves when ``lanes``."""
-    if isinstance(leaves, dict):
-        leaves = tree_leaves(leaves)
+def global_norm(tree, lanes: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares over all leaves of ``tree`` (a list of
+    tensors or a dict tree); per lane ((B,)) for lane-stacked leaves when
+    ``lanes``."""
+    leaves = tree_leaves(tree) if isinstance(tree, dict) else tree
 
     def sq(g):
         g = torch.square(g.float())

@@ -916,3 +916,27 @@ def test_cuda_matern_aliases_launch_the_kernels():
     cpu = ops.matern_mvm(*map(torch.tensor, (x, x, v)), params)
     got = ops.matern_mvm(xd, xd, vd, pdev).cpu()
     assert (got - cpu).abs().max() <= 1e-5 * cpu.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_the_card(tmp_path):
+    """A tree of card tensors (a dict, `HyperParams`, an int) saved through
+    ``repro_torch.distributed`` restores onto CUDA templates bitwise and on
+    the card, never onto the CPU."""
+    _cuda_or_skip()
+    from repro_torch.distributed import restore_checkpoint, save_checkpoint
+
+    x, v = (torch.tensor(a, device="cuda") for a in _draws(3, (50, 4), (7,)))
+    params = _params(4, 1, "rbf")
+    params = params.with_leaves([p.cuda() for p in params.leaves])
+    tree = {"x": x, "v": [v, 3], "params": params}
+    save_checkpoint(str(tmp_path), 0, tree)
+    template = {"x": torch.zeros_like(x), "v": [torch.zeros_like(v), 0],
+                "params": params.with_leaves(
+                    [torch.zeros_like(p) for p in params.leaves])}
+    back, _ = restore_checkpoint(str(tmp_path), template)
+    assert back["v"][1] == 3 and back["params"].kernel == "rbf"
+    for got, want in ((back["x"], x), (back["v"][0], v),
+                      *zip(back["params"].leaves, params.leaves)):
+        assert got.device == want.device and got.dtype == want.dtype
+        assert torch.equal(got, want)

@@ -239,6 +239,25 @@ Phases, each printing JSON lines:
    (both kernels, as many as the step's history accounts for), bitwise
    equal to the same step from the state in memory. Under 15 s.
 
+17. solver_comparison (since the solver-comparison slice), after surface:
+   ``examples/torch_solver_comparison.py`` (the paper's Table 1 on
+   elevators, every solve to tolerance 0.01), each variant with the launch
+   counts set to 0 just before it and read just after, held to its
+   history: (a) the example's 12 rows as its ``main`` runs them (1350
+   training rows, AP and SGD padded to 1400, 15 steps), every step at the
+   tolerance, warm below cold in epochs for each (solver, estimator), every
+   LLH finite; (b) CG's and AP's four variants at full elevators (13 446
+   training rows, AP padded to 13 500), with the speed-up of pathwise +
+   warm over standard + cold in epochs and seconds, printed, and one more
+   step of each pathwise + warm fit timed in parts and under the profiler;
+   (c) CG
+   pathwise warm, AP standard cold and SGD pathwise cold at 300 rows, 3
+   steps, on the card and on the CPU from one state with the same draws
+   handed over through ``fit``: iterations equal, hyperparameters within
+   ``TOL_TRAIN_VS_CPU``. The kernels phases time both kernels at the full
+   elevators CG shape (13 446², d = 18, s = 33; s' = 66 fused), and the
+   forward at AP's column slab there (13 500 x 100).
+
 The line before the last lists every kernel; the last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without that
 line, when there is no CUDA device, when run outside the repository, or when
@@ -306,6 +325,11 @@ RAGGED_SHAPE = (1001, 777, 7, 9)
 AP_SLAB_3DROAD_SHAPE = (353000, 1000, 3, 33)
 AP_SLAB_SONG_SHAPE = (418000, 1000, 90, 65)
 WIDE_SHAPES = ((8192, 8192, 120, 65), (8192, 8192, 200, 65))
+# CG's H @ V at full elevators (13 446 training rows, d = 18, [y | 32
+# probes]); the fused backward there has s' = 66.
+ELEVATORS_CG_SHAPE = (13446, 13446, 18, 33)
+# AP's column slab there: 13 446 rows padded to 13 500, 100-row blocks.
+AP_SLAB_ELEVATORS_SHAPE = (13500, 100, 18, 33)
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 # Forward kernel: (label, shape, kinds timed). The shapes of earlier PRs
 # are timed for every kind, the large-dataset ones for Matérn-3/2 only
@@ -319,7 +343,10 @@ FWD_SHAPES = (("cg", CG_SHAPE, KINDS), ("predict", PREDICT_SHAPE, KINDS),
               ("ap_col_slab_3droad", AP_SLAB_3DROAD_SHAPE, ("matern32",)),
               ("ap_col_slab_song", AP_SLAB_SONG_SHAPE, ("matern32",)),
               ("wide_d120", WIDE_SHAPES[0], ("matern32",)),
-              ("wide_d200", WIDE_SHAPES[1], ("matern32",)))
+              ("wide_d200", WIDE_SHAPES[1], ("matern32",)),
+              ("cg_elevators", ELEVATORS_CG_SHAPE, ("matern32",)),
+              ("ap_col_slab_elevators", AP_SLAB_ELEVATORS_SHAPE,
+               ("matern32",)))
 # Backward kernel, the fused call on 16 384 training rows of song (d = 90)
 # and buzz (d = 77), pre-scaled by the generator's lengthscale 1.6 sqrt(d)
 # so the kernel's values spread over (0, 1].
@@ -421,7 +448,7 @@ def phase_kernels(torch, tiled, registry) -> dict:
         u = torch.randn((n, d), generator=gen, device="cuda")
         if large:
             u *= math.sqrt(3.0 / d)
-        if label == "cg" or label.startswith("wide_"):
+        if label.startswith(("cg", "wide_")):
             w = u  # H @ V: coincident points on the diagonal
         elif large:
             w = u[:m]
@@ -537,6 +564,9 @@ def phase_kernels_bwd(torch, tiled, registry) -> dict:
         fused("buzz_fused_16k", rows("buzz"), rnd(k, 65), rnd(k, 65),
               ("matern32",)),
     ]
+    en, _, ed, es = ELEVATORS_CG_SHAPE
+    cases.append(fused("cg_fused_elevators", rnd(en, ed), rnd(en, es),
+                       rnd(en, es), ("matern32",)))
     for wn, _, wd, ws in WIDE_SHAPES:
         cases.append(fused(f"wide_d{wd}_fused",
                            rnd(wn, wd) * math.sqrt(3.0 / wd), rnd(wn, ws),
@@ -1542,12 +1572,14 @@ def phase_http(torch, tiled, serve_run, v2_model) -> list:
 
 def expected_launches(tiled, h, solver, d, probes, grid=0) -> dict:
     """The launches a fit's history accounts for. Forward: every full MVM,
-    every AP/SGD slab (one per iteration), the gradient's forward (1 per
-    step), each evaluation's cross-MVM and solves, and the SGD grid's
-    slabs and MVMs (``grid``). Backward: the gradient's fused call every
-    step, one launch per column chunk of (g, v) at width d."""
+    every AP/SGD slab (one per iteration, the standard estimator's eval
+    solves' too), the gradient's forward (1 per step), each evaluation's
+    cross-MVM and solves, and the SGD grid's slabs and MVMs (``grid``).
+    Backward: the gradient's fused call every step, one launch per column
+    chunk of (g, v) at width d."""
     steps = len(h["iters"])
-    slabs = int(h["iters"].sum()) if solver != "cg" else 0
+    slabs = int(h["iters"].sum() + h["eval_iters"].sum()) \
+        if solver != "cg" else 0
     return {
         tiled.KERNEL_NAME: int(h["mvms"].sum()) + slabs + steps
         + int(h["eval_mvms"].sum()) + len(h["eval_step"]) + grid,
@@ -3904,6 +3936,250 @@ def phase_surface(torch, tiled, smi: str, args, run) -> tuple:
     return launches, second_passes
 
 
+SOLVER_CMP_STEPS = 15  # the example's default
+SOLVER_CMP_TOL = 0.01
+# (b): full elevators (14 940 rows, 13 446 training rows; AP pads to
+# 13 500); SGD stays at the example's size.
+SOLVER_CMP_FULL = ("cg", "ap")
+# (c): card against CPU at 300 training rows, 3 steps, one variant per
+# solver (solver, pathwise, warm).
+SOLVER_CMP_SMALL_MAX_N = 334
+SOLVER_CMP_SMALL_STEPS = 3
+SOLVER_CMP_CARD_VS_CPU = (("cg", True, True), ("ap", False, False),
+                          ("sgd", True, False))
+
+
+def _variant(torch, tiled, twin, ds, kw, part, device="cuda") -> tuple:
+    """One ``fit_variant`` of the twin with the launch counts set to 0 just
+    before it and read just after: its record (epochs, iterations per
+    step, seconds after a synchronise, test LLH/RMSE, launches against the
+    history's, peak memory) and its problems."""
+    _sync_dev(torch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tiled.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, r = twin.fit_variant(ds, **kw)
+    _sync_dev(torch, device)
+    seconds = time.perf_counter() - t0
+    launches = tiled.launch_counts()
+    second_passes = tiled.second_pass_counts()
+    h = res.history
+    expected = expected_launches(tiled, h, kw["solver"], ds.x_train.shape[1],
+                                 res.state.carry_v.shape[1] - 1)
+    label = (f"{kw['solver']}_{'pathwise' if kw['pathwise'] else 'standard'}"
+             f"_{'warm' if kw['warm'] else 'cold'}")
+    res_y, res_z = h["res_y"].tolist(), h["res_z"].tolist()
+    rec = {"phase": "solver_comparison", "part": part, "variant": label,
+           "solver": kw["solver"], "pathwise": kw["pathwise"],
+           "warm": kw["warm"], "n_train": int(ds.x_train.shape[0]),
+           "n_solved": int(res.state.carry_v.shape[0]),
+           "steps": len(h["iters"]), "total_epochs": r["total_epochs"],
+           "epochs_per_step": h["epochs"].tolist(),
+           "iters_per_step": h["iters"].tolist(),
+           "total_iters": r["total_iters"], "res_y": res_y, "res_z": res_z,
+           "eval_iters": h["eval_iters"].tolist(),
+           "seconds": seconds, "fit_wall_s": r["total_time_s"],
+           "test_llh": r.get("test_llh"), "test_rmse": r.get("test_rmse"),
+           "launches": launches, "expected_launches": expected,
+           "fwd_second_pass_calls": second_passes[tiled.KERNEL_NAME],
+           "bwd_second_pass_calls": second_passes[tiled.BWD_KERNEL_NAME],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()
+           if device == "cuda" else None}
+    problems = []
+    if device == "cuda":
+        for k, want in expected.items():
+            if launches[k] == 0 or launches[k] != want:
+                problems.append(f"{part} {label}: {k} launches {launches[k]} "
+                                f"!= expected {want}")
+    if max(res_y + res_z) > SOLVER_CMP_TOL:
+        problems.append(f"{part} {label}: a step stopped above the "
+                        f"tolerance (res_y {res_y}, res_z {res_z})")
+    if not math.isfinite(r.get("test_llh", math.nan)):
+        problems.append(f"{part} {label}: test LLH {r.get('test_llh')}")
+    rec["ok"] = not problems
+    emit(rec)
+    return rec, problems, (launches, second_passes), res
+
+
+def _warm_below_cold(recs: list, part: str) -> tuple:
+    """Per (solver, estimator): warm's total epochs over cold's; a problem
+    unless warm is below."""
+    ratios, problems = {}, []
+    for rec in recs:
+        if rec["warm"]:
+            cold = next(c for c in recs if not c["warm"]
+                        and c["solver"] == rec["solver"]
+                        and c["pathwise"] == rec["pathwise"])
+            key = (f"{rec['solver']}_"
+                   f"{'pathwise' if rec['pathwise'] else 'standard'}")
+            ratios[key] = cold["total_epochs"] / rec["total_epochs"]
+            if not rec["total_epochs"] < cold["total_epochs"]:
+                problems.append(f"{part} {key}: warm {rec['total_epochs']} "
+                                f"epochs, cold {cold['total_epochs']}")
+    return ratios, problems
+
+
+def _card_vs_cpu_variant(torch, twin, kw, max_n=SOLVER_CMP_SMALL_MAX_N,
+                         card="cuda") -> dict:
+    """``run_variant`` on the card and on the CPU from one initial state
+    (drawn on the CPU, copied to the card) with the same per-step draws
+    handed over through ``fit``: fresh probes for every step, SGD's
+    schedules, the standard estimator's eval probes and eval schedule, all
+    drawn on the CPU from fixed seeds."""
+    import numpy as np
+
+    from repro_torch import lanes as lanes_mod
+    from repro_torch.core.estimators import PATHWISE, init_probes
+    from repro_torch.core.outer import init_outer_state, resample_probes
+
+    steps, block = kw["steps"], 100
+    cpu = twin.bench_dataset("elevators", max_n=max_n, device="cpu")
+    gpu = twin.bench_dataset("elevators", max_n=max_n, device=card)
+    x = cpu.x_train
+    n, d = x.shape
+    cfg = twin.variant_config(kw["solver"], kw["pathwise"], kw["warm"],
+                              steps=steps, sgd_lr=kw["sgd_lr"])
+    state = init_outer_state(cfg, x, generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    draws = {"probes": [resample_probes(torch.Generator().manual_seed(10 + i),
+                                        state.probes, x) for i in range(steps)],
+             "batch_idx": [rng.integers(0, n // block, size=20000).tolist()
+                           for _ in range(steps)],
+             "eval_probes": [init_probes(
+                 torch.Generator().manual_seed(20), PATHWISE, n, d,
+                 cfg.num_probes, cfg.num_rff_pairs,
+                 kind=state.params.kernel)],
+             "eval_batch_idx": [rng.integers(0, n // block,
+                                             size=20000).tolist()]}
+
+    def on(tree):
+        return lanes_mod.tree_map(lambda t: t.to(card), tree)
+
+    card_draws = {k: v if k.endswith("batch_idx") else [on(p) for p in v]
+                  for k, v in draws.items()}
+    out = {}
+    for label, ds, st, dr in (("cpu", cpu, state, draws),
+                              ("card", gpu, on(state), card_draws)):
+        _sync_dev(torch, card)
+        t0 = time.perf_counter()
+        out[label] = twin.run_variant(ds, **kw, state=st, draws=dr)
+        _sync_dev(torch, card)
+        out[label]["seconds"] = time.perf_counter() - t0
+    a, b = out["cpu"], out["card"]
+    errs = [float(abs(b["hypers"][i] - a["hypers"][i]).max()
+                  / abs(a["hypers"][i]).max()) for i in range(steps)]
+    iters_equal = a["iters_per_step"].tolist() == b["iters_per_step"].tolist()
+    rec = {"phase": "solver_comparison", "part": "c_card_vs_cpu",
+           "variant": f"{kw['solver']}_"
+                      f"{'pathwise' if kw['pathwise'] else 'standard'}_"
+                      f"{'warm' if kw['warm'] else 'cold'}",
+           "n_train": n, "steps": steps,
+           "iters_cpu": a["iters_per_step"].tolist(),
+           "iters_card": b["iters_per_step"].tolist(),
+           "iters_equal": iters_equal, "rel_err_per_step": errs,
+           "tol_rel": TOL_TRAIN_VS_CPU,
+           "test_llh": [a["test_llh"], b["test_llh"]],
+           "seconds": [a["seconds"], b["seconds"]],
+           "ok": iters_equal and all(e <= TOL_TRAIN_VS_CPU for e in errs)}
+    emit(rec)
+    return rec
+
+
+def phase_solver_comparison(torch, tiled, smi: str, device="cuda",
+                            max_n=None, full_n=0, steps=SOLVER_CMP_STEPS,
+                            small_max_n=SOLVER_CMP_SMALL_MAX_N) -> list:
+    """Phase 17: ``examples/torch_solver_comparison.py`` (the paper's
+    Table 1 on elevators), each part with the launch counts set to 0 just
+    before each variant and read just after. (a) The example as its
+    ``main`` runs it (1350 training rows, AP and SGD padded to 1400, 15
+    steps, all 12 variants): every step at the tolerance, warm below cold
+    in epochs per (solver, estimator), every LLH finite, launches held to
+    each history. (b) CG's and AP's four variants at full elevators (13 446
+    training rows; AP padded to 13 500), the speed-up of pathwise + warm
+    over standard + cold in epochs and seconds (printed, not gated), then
+    one more step of each pathwise + warm fit profiled
+    (``phase_profile``). (c)
+    One variant per solver card against CPU at 300 rows, 3 steps, one
+    state and the same draws: iterations equal, hyperparameters within
+    ``TOL_TRAIN_VS_CPU``. ``device="cpu"`` with small sizes dry-runs it
+    (no launch is counted there)."""
+    twin = _example("torch_solver_comparison")
+    argv = ["--device", device, "--steps", str(steps)]
+    if max_n is not None:
+        argv += ["--max-n", str(max_n)]
+    args = twin.build_parser().parse_args(argv)
+    problems, counts, summary = [], [], {"nvidia_smi": smi}
+
+    ds = twin.bench_dataset(args.dataset, max_n=args.max_n, device=device)
+    print(twin.HEADER, flush=True)
+    recs = []
+    t0 = time.perf_counter()
+    for kw in twin.variant_kwargs(args):
+        rec, bad, launched, _ = _variant(torch, tiled, twin, ds, kw,
+                                         "a_example", device)
+        print(twin.format_row({**kw, "total_epochs": rec["total_epochs"],
+                               "total_time_s": rec["fit_wall_s"],
+                               "test_llh": rec["test_llh"]}), flush=True)
+        recs.append(rec)
+        problems += bad
+        counts.append(launched)
+    ratios, bad = _warm_below_cold(recs, "a_example")
+    problems += bad
+    summary["a_example"] = {"n_train": recs[0]["n_train"],
+                            "seconds": time.perf_counter() - t0,
+                            "cold_over_warm_epochs": ratios}
+
+    full = twin.bench_dataset(args.dataset, max_n=full_n, device=device)
+    for solver in SOLVER_CMP_FULL:
+        t0, recs = time.perf_counter(), []
+        for kw in twin.variant_kwargs(args):
+            if kw["solver"] != solver:
+                continue
+            rec, bad, launched, res = _variant(torch, tiled, twin, full, kw,
+                                               "b_full", device)
+            recs.append(rec)
+            problems += bad
+            counts.append(launched)
+            if kw["pathwise"] and kw["warm"]:
+                best_fit = res
+        ratios, bad = _warm_below_cold(recs, f"b_full_{solver}")
+        problems += bad
+        base = next(r for r in recs if not r["pathwise"] and not r["warm"])
+        best = next(r for r in recs if r["pathwise"] and r["warm"])
+        summary[f"b_full_{solver}"] = {
+            "n_train": base["n_train"], "n_solved": base["n_solved"],
+            "seconds": time.perf_counter() - t0,
+            "cold_over_warm_epochs": ratios, "warm_below_cold": not bad,
+            "pathwise_warm_speedup_epochs":
+                base["total_epochs"] / best["total_epochs"],
+            "pathwise_warm_speedup_seconds": base["seconds"] / best["seconds"]}
+        if device == "cuda":
+            # One more step of pathwise + warm from its fitted state, its
+            # parts timed apart and under the profiler.
+            phase_profile(torch, f"b_full_{solver}_pathwise_warm",
+                          SimpleNamespace(dataset=args.dataset, max_n=full_n),
+                          SimpleNamespace(cfg=twin.variant_config(
+                              solver, True, True, steps=args.steps),
+                              fit=best_fit))
+
+    t0, small = time.perf_counter(), []
+    for solver, pathwise, warm in SOLVER_CMP_CARD_VS_CPU:
+        kw = dict(solver=solver, pathwise=pathwise, warm=warm,
+                  steps=SOLVER_CMP_SMALL_STEPS, sgd_lr=2.0)
+        small.append(_card_vs_cpu_variant(torch, twin, kw, small_max_n,
+                                          device))
+    problems += [f"card vs CPU {r['variant']}: iters {r['iters_cpu']} / "
+                 f"{r['iters_card']}, errs {r['rel_err_per_step']}"
+                 for r in small if not r["ok"]]
+    summary["c_card_vs_cpu_s"] = time.perf_counter() - t0
+    emit({"phase": "solver_comparison", "part": "summary", **summary,
+          "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 def _state_tensors(state) -> list:
     from repro_torch.checkpoint import state_leaves
 
@@ -4064,6 +4340,13 @@ def main() -> int:
         traceback.print_exc()
         failures.append("surface")
     phase_s["surface"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    try:
+        path_launches.extend(phase_solver_comparison(torch, tiled, smi))
+    except Exception:
+        traceback.print_exc()
+        failures.append("solver_comparison")
+    phase_s["solver_comparison"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     try:
         launches, prof_args = phase_large(torch, tiled)

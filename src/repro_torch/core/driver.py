@@ -86,7 +86,8 @@ GRAD_EPOCH_EQUIV = 3.0
 HISTORY_KEYS = ("res_y", "res_z", "iters", "epochs", "mvms", "host_syncs",
                 "hypers", "grad_norm", "data_fit", "step_time_s",
                 "solver_frac_iters")
-EVAL_KEYS = ("eval_step", "eval_rmse", "eval_llh", "eval_mvms")
+EVAL_KEYS = ("eval_step", "eval_rmse", "eval_llh", "eval_mvms",
+             "eval_iters")
 
 
 @dataclass
@@ -225,6 +226,10 @@ def fit(
     numerics: Optional[SolverNumerics] = None,
     event_log=None,
     budget_policy: Optional[BudgetPolicy] = None,
+    probes: Optional[Sequence[ProbeState]] = None,
+    batch_idx: Optional[Sequence] = None,
+    eval_probes: Optional[Sequence[ProbeState]] = None,
+    eval_batch_idx: Optional[Sequence] = None,
 ) -> FitResult:
     """Run ``cfg.num_steps`` outer MLL steps with optional eval/checkpoints.
 
@@ -260,6 +265,16 @@ def fit(
     receives one ``solve_step`` event per step (and ``budget_decision``
     under a budget policy, see :func:`_append_round`) and a ``fit_done``
     event at the end, as the reference's.
+
+    ``probes``, ``batch_idx``, ``eval_probes`` and ``eval_batch_idx`` hand
+    over draws that ``generator`` would make otherwise (how a test hands
+    over the reference's): ``probes[i]`` the fresh probes of step i without
+    warm starting, ``batch_idx[i]`` SGD's block schedule of step i,
+    ``eval_probes[j]`` the standard estimator's eval probes and
+    ``eval_batch_idx[j]`` its eval solves' SGD schedule at the j-th
+    evaluation (after step (j + 1) * ``eval_every``). Steps count from the
+    fit's first, so a resumed fit takes the same sequences. Only the draws
+    not handed over come from ``generator``.
     """
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
@@ -287,15 +302,19 @@ def fit(
         k = _round_size(state.step, cfg.num_steps, steps_per_round,
                         eval_every if x_test is not None else 0,
                         ckpt_every if ckpt_dir else 0)
+        given = {"probes": None if probes is None
+                 else probes[state.step:state.step + k],
+                 "batch_idx": None if batch_idx is None
+                 else batch_idx[state.step:state.step + k]}
         ts = time.perf_counter()
         if policy is None:
             state, metrics = outer_scan(state, x, y, cfg, k,
                                         numerics=numerics,
-                                        generators=generator)
+                                        generators=generator, **given)
         else:
             (state, policy), metrics = outer_scan(
                 state, x, y, cfg, k, numerics=numerics, budget=policy,
-                generators=generator)
+                generators=generator, **given)
         # torch-lint: disable=trace-host-sync -- one synchronise per round of steps, to time the round on the card's clock
         _sync(state.carry_v)
         dt = time.perf_counter() - ts
@@ -306,10 +325,15 @@ def fit(
                                      solver=cfg.solver.name)
         step = state.step
         if eval_every and x_test is not None and step % eval_every == 0:
+            j = step // eval_every - 1
             m = evaluate(x, state, cfg, x_test, y_test, generator=generator,
-                         numerics=numerics)
+                         eval_probes=None if eval_probes is None
+                         else eval_probes[j],
+                         batch_idx=None if eval_batch_idx is None
+                         else eval_batch_idx[j], numerics=numerics)
             for key, val in (("eval_step", step), ("eval_rmse", m["rmse"]),
-                             ("eval_llh", m["llh"]), ("eval_mvms", m["mvms"])):
+                             ("eval_llh", m["llh"]), ("eval_mvms", m["mvms"]),
+                             ("eval_iters", m["iters"])):
                 history[key].append(val)
             if verbose:
                 print(f"[fit] step {step}: rmse={m['rmse']:.4f} "
@@ -468,6 +492,7 @@ def fit_batch(
                 hist["eval_rmse"].append(m["rmse"])
                 hist["eval_llh"].append(m["llh"])
                 hist["eval_mvms"].append(m["mvms"])
+                hist["eval_iters"].append(m["iters"])
             hist = {k_: np.asarray(v) for k_, v in hist.items()}
             results.append(FitResult(
                 state=lane_state, history=hist, wall_time_s=wall / lanes,
@@ -745,7 +770,8 @@ def evaluate(
     batch_idx: Optional[Sequence[int]] = None,
     numerics: Optional[SolverNumerics] = None,
 ) -> dict:
-    """Test RMSE / mean predictive LLH, and the H MVMs the eval solves took.
+    """Test RMSE / mean predictive LLH, and the H MVMs and iterations the
+    eval solves took.
 
     Pathwise estimator: zero extra solves (eq. 16) from the current carry.
     Standard estimator: the s pathwise eval solves the paper charges to the
@@ -757,7 +783,7 @@ def evaluate(
     kind = effective_kind(cfg, state.params)
     with torch.no_grad():
         if cfg.estimator == PATHWISE:
-            v, probes, mvms = state.carry_v, state.probes, 0
+            v, probes, mvms, iters = state.carry_v, state.probes, 0, 0
         else:
             n, d = x.shape
             if eval_probes is None:
@@ -775,7 +801,8 @@ def evaluate(
             res = solve(op, targets[:, 1:], None, scfg, batch_idx=batch_idx,
                         generator=generator, numerics=numerics)
             v = torch.cat([state.carry_v[:, :1], res.v], dim=1)
-            probes, mvms = eval_probes, res.mvms
+            probes, mvms, iters = eval_probes, res.mvms, int(res.iters)
         pred = pathwise_predict(x, x_test, v, probes, state.params, kind=kind)
         m = predictive_metrics(y_test, pred, state.params)
-    return {"rmse": float(m["rmse"]), "llh": float(m["llh"]), "mvms": mvms}
+    return {"rmse": float(m["rmse"]), "llh": float(m["llh"]), "mvms": mvms,
+            "iters": iters}

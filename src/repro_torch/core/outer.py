@@ -360,7 +360,7 @@ def _outer_step_budget_lanes(states: OuterState, policy: BudgetPolicy,
                              x: torch.Tensor, y: torch.Tensor,
                              cfg: OuterConfig,
                              numerics: Optional[SolverNumerics] = None,
-                             generators=None, batch_idx=None
+                             generators=None, batch_idx=None, probes=None
                              ) -> tuple[OuterState, BudgetPolicy, dict]:
     _require_history(cfg)
     lanes = num_lanes(states)
@@ -370,7 +370,7 @@ def _outer_step_budget_lanes(states: OuterState, policy: BudgetPolicy,
     alloc, pred = budget_allocate(policy, num)
     states, metrics = _outer_step_lanes(
         states, x, y, cfg, num._replace(max_epochs=alloc), generators,
-        batch_idx=batch_idx)
+        probes=probes, batch_idx=batch_idx)
     policy, decision = budget_observe(
         policy, metrics["res_history"], metrics["iters"], metrics["epochs"],
         metrics["res_y"], metrics["res_z"], num.tolerance)
@@ -414,7 +414,7 @@ def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
                cfg: OuterConfig, num_steps: int, lanes: bool = False,
                numerics: Optional[SolverNumerics] = None,
                budget: Optional[BudgetPolicy] = None, generators=None,
-               batch_idx=None):
+               batch_idx=None, probes=None):
     """Run ``num_steps`` outer steps, keeping each step's metrics on the
     device and stacking them: a leading ``num_steps`` axis (then the lane
     axis when ``lanes``), read by the caller once per round.
@@ -427,7 +427,9 @@ def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
     pass the returned policy into the next round. ``generators``: one
     generator, or one per lane. ``batch_idx``, when given, hands over
     SGD's block schedule of each step (step i's ``batch_idx[i]``: (B,
-    iters) when ``lanes``, else (iters,)) in place of draws.
+    iters) when ``lanes``, else (iters,)) in place of draws, and
+    ``probes`` the fresh probes of each step without warm starting (step
+    i's ``probes[i]``, lane-stacked when ``lanes``).
     """
     states = state if lanes else stack_states([state])
     policy = budget
@@ -437,14 +439,17 @@ def outer_scan(state: OuterState, x: torch.Tensor, y: torch.Tensor,
     per_step = []
     for i in range(num_steps):
         sched = None if batch_idx is None else batch_idx[i]
-        if sched is not None and not lanes:
-            sched = [sched]
+        fresh = None if probes is None else probes[i]
+        if not lanes:
+            sched = None if sched is None else [sched]
+            fresh = None if fresh is None else lanes_mod.stack([fresh])
         if policy is None:
             states, m = _outer_step_lanes(states, x, y, cfg, numerics, gens,
-                                          batch_idx=sched)
+                                          probes=fresh, batch_idx=sched)
         else:
             states, policy, m = _outer_step_budget_lanes(
-                states, policy, x, y, cfg, numerics, gens, batch_idx=sched)
+                states, policy, x, y, cfg, numerics, gens, batch_idx=sched,
+                probes=fresh)
         per_step.append(m)
     metrics = {}
     for k in (per_step[0] if per_step else {}):

@@ -940,3 +940,34 @@ def test_cuda_checkpoint_restores_onto_the_card(tmp_path):
                       *zip(back["params"].leaves, params.leaves)):
         assert got.device == want.device and got.dtype == want.dtype
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,pathwise,warm", [("cg", True, True),
+                                                  ("ap", False, False),
+                                                  ("sgd", True, False)])
+def test_cuda_solver_comparison_variant_matches_cpu(solver, pathwise, warm):
+    """On a card: the twin of ``examples/solver_comparison.py``'s
+    ``run_variant`` (to tolerance, 3 steps, eval at the last) at 300 rows
+    of the elevators stand-in, from one initial state drawn on the CPU and
+    with the same per-step draws handed over (fresh probes, SGD's
+    schedules, the eval probes and schedule), against the same call on the
+    CPU, through ``chip_smoke.py``'s own recipe: iterations equal per step,
+    hyperparameters within its ``TOL_TRAIN_VS_CPU`` of the largest, the
+    test LLH within 1e-3."""
+    _cuda_or_skip()
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    twin = smoke._example("torch_solver_comparison")
+    rec = smoke._card_vs_cpu_variant(
+        torch, twin, dict(solver=solver, pathwise=pathwise, warm=warm,
+                          steps=3, sgd_lr=2.0))
+    assert rec["iters_equal"], (rec["iters_cpu"], rec["iters_card"])
+    assert rec["ok"], rec["rel_err_per_step"]
+    want, got = rec["test_llh"]
+    assert abs(got - want) <= 1e-3 * abs(want)

@@ -194,29 +194,32 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Static: no ``jax``/``repro.*`` import in the port, chip_smoke.py or
-    the example twins (``examples/torch_*.py``). Dynamic: every port module
-    and every twin imports with ``jax`` and ``repro`` blocked."""
+    """Static: no ``jax``/``repro.*``/``benchmarks.*`` import in the port,
+    chip_smoke.py or the example twins (``examples/torch_*.py``). Dynamic:
+    every port module and every twin imports with ``jax``, ``repro`` and
+    ``benchmarks`` blocked."""
     examples = sorted((REPO / "examples").glob("torch_*.py"))
     assert examples, "no example twins found"
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                f"{f}: imports {mod}"
     modules = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                for p in sorted(PORT.rglob("*.py"))]
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
                for m in modules]
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "    sys.modules[name] = None\n"
             f"import importlib, importlib.util\nfor m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             f"for i, path in enumerate({[str(e) for e in examples]!r}):\n"
             "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.',\n"
+            "                                           'benchmarks.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

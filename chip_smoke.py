@@ -57,16 +57,14 @@ Phases, each printing JSON lines:
    gradient and the evaluations; then 3 steps on a small input on the card
    against the same steps on the CPU from the same state, for CG, AP and
    SGD (one block schedule handed to both).
-5. profile: one more outer step of runs (a), (c) and (d) split into the
-   solve's setup (preconditioner or block Cholesky), the solve (and its time
-   per iteration) and the gradient, and one outer step of each under
-   ``torch.profiler`` (device busy share, top kernels).
+5. (no phase: a step's stages are split by the program's stage spans,
+   ``python3 bench/stages.py``, against the benchmark's cells.)
 6. large: run (e), ``examples/torch_budget_large_scale.py`` at full 3droad
    (352 248 rows padded to 353 000, d = 3): the initialisation heuristic at
    the paper's defaults, then AP (1000-row blocks, 3 epochs per step, 32
    probes, pathwise) cold and warm, 5 steps each, eval at the last; per
-   step iterations, epochs, residuals and time, launch counts, peak
-   memory, and a profiled step of the warm run.
+   step iterations, epochs, residuals and time, launch counts and peak
+   memory.
 7. large_steps: one AP step through the train CLI at full song, buzz and
    houseelectric (1 659 916 rows), budget 1 epoch, 64 probes: setup and
    step seconds, the step split into targets, block Cholesky, the initial
@@ -248,9 +246,7 @@ Phases, each printing JSON lines:
    tolerance, warm below cold in epochs for each (solver, estimator), every
    LLH finite; (b) CG's and AP's four variants at full elevators (13 446
    training rows, AP padded to 13 500), with the speed-up of pathwise +
-   warm over standard + cold in epochs and seconds, printed, and one more
-   step of each pathwise + warm fit timed in parts and under the profiler;
-   (c) CG
+   warm over standard + cold in epochs and seconds, printed; (c) CG
    pathwise warm, AP standard cold and SGD pathwise cold at 300 rows, 3
    steps, on the card and on the CPU from one state with the same draws
    handed over through ``fit``: iterations equal, hyperparameters within
@@ -1755,92 +1751,6 @@ def _train_vs_cpu(torch) -> list:
     return problems
 
 
-def phase_profile(torch, label, args, run) -> dict:
-    """Where one more outer step of a train run goes: the solve's setup (CG:
-    the preconditioner build; AP: the block Cholesky factors), the solve and
-    the gradient timed apart (host clock + synchronise), with the solve's
-    wall time per iteration; then one outer step under ``torch.profiler``
-    for the device's busy share, its time per solver iteration and its top
-    kernels."""
-    from repro_torch.core.estimators import build_system_targets
-    from repro_torch.core.gradients import mll_grad_estimate
-    from repro_torch.core.outer import outer_step
-    from repro_torch.data.synthetic import load_dataset, pad_to_block_multiple
-    from repro_torch.solvers import HOperator
-    from repro_torch.solvers.ap import solve_ap
-    from repro_torch.solvers.cg import solve_cg
-    from repro_torch.solvers.precond import build_preconditioner
-    from repro_torch.solvers.sgd import solve_sgd
-
-    cfg, state, scfg = run.cfg, run.fit.state, run.cfg.solver
-    ds = load_dataset(args.dataset, max_n=args.max_n, device="cuda")
-    x, y = ds.x_train, ds.y_train
-    if scfg.name != "cg":
-        x, y, _ = pad_to_block_multiple(
-            x, y, scfg.block_size if scfg.name == "ap" else scfg.batch_size)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    with torch.no_grad():
-        targets = build_system_targets(state.probes, x, y, state.params)
-        op = HOperator(x=x, params=state.params, backend=cfg.backend,
-                       bm=cfg.bm, bn=cfg.bn)
-        if scfg.name == "cg":
-            setup, setup_s = timed(lambda: build_preconditioner(
-                op, scfg.precond_rank))
-            sol, solve_s = timed(lambda: solve_cg(op, targets, state.carry_v,
-                                                  scfg, precond=setup))
-        elif scfg.name == "ap":
-            setup, setup_s = timed(lambda: op.all_block_cholesky(
-                scfg.block_size))
-            sol, solve_s = timed(lambda: solve_ap(op, targets, state.carry_v,
-                                                  scfg, block_chols=setup))
-        else:
-            setup_s = 0.0
-            sol, solve_s = timed(lambda: solve_sgd(op, targets, state.carry_v,
-                                                   scfg, generator=gen))
-    _, grad_s = timed(lambda: mll_grad_estimate(
-        x, y, state.params, sol.v, targets, cfg.estimator, bm=cfg.bm,
-        bn=cfg.bn, backend=cfg.backend))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        _, m = outer_step(state, x, y, cfg, generator=gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    rec = {"phase": "profile", "run": label, "solver": scfg.name,
-           "iters": sol.iters, "setup": {"cg": "precond_build", "ap":
-                                         "block_cholesky", "sgd": None}[scfg.name],
-           "setup_s": setup_s, "solve_s": solve_s,
-           "solve_s_per_iter": solve_s / max(sol.iters, 1),
-           "host_syncs": sol.host_syncs, "grad_s": grad_s,
-           "window": "1 outer step", "window_iters": m["iters"],
-           "window_wall_s": wall,
-           "device_kernel_launches": sum(e.count for e in kernels),
-           "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
-           "device_busy_s_per_iter": busy_us / 1e6 / max(m["iters"], 1)
-           if busy_us else "not measured",
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall if busy_us
-           else "not measured",
-           "top_kernels": [{"name": e.key[:80], "calls": e.count,
-                            "device_ms": e.self_device_time_total / 1e3}
-                           for e in top]}
-    emit(rec)
-    return rec
-
-
 def _example(name: str):
     """A script of ``examples/`` as a module."""
     import importlib.util
@@ -1929,9 +1839,7 @@ def phase_large(torch, tiled) -> tuple:
         problems.append(f"e_3droad: n {n} or heuristic {init.flat().tolist()}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return (launches, second_passes), (
-        SimpleNamespace(dataset="3droad", max_n=0),
-        SimpleNamespace(cfg=ex.config(args, True), fit=out[True]))
+    return launches, second_passes
 
 
 def phase_rff_memory(torch) -> None:
@@ -3999,7 +3907,7 @@ def _variant(torch, tiled, twin, ds, kw, part, device="cuda") -> tuple:
         problems.append(f"{part} {label}: test LLH {r.get('test_llh')}")
     rec["ok"] = not problems
     emit(rec)
-    return rec, problems, (launches, second_passes), res
+    return rec, problems, (launches, second_passes)
 
 
 def _warm_below_cold(recs: list, part: str) -> tuple:
@@ -4098,8 +4006,7 @@ def phase_solver_comparison(torch, tiled, smi: str, device="cuda",
     each history. (b) CG's and AP's four variants at full elevators (13 446
     training rows; AP padded to 13 500), the speed-up of pathwise + warm
     over standard + cold in epochs and seconds (printed, not gated), then
-    one more step of each pathwise + warm fit profiled
-    (``phase_profile``). (c)
+    (c)
     One variant per solver card against CPU at 300 rows, 3 steps, one
     state and the same draws: iterations equal, hyperparameters within
     ``TOL_TRAIN_VS_CPU``. ``device="cpu"`` with small sizes dry-runs it
@@ -4116,8 +4023,8 @@ def phase_solver_comparison(torch, tiled, smi: str, device="cuda",
     recs = []
     t0 = time.perf_counter()
     for kw in twin.variant_kwargs(args):
-        rec, bad, launched, _ = _variant(torch, tiled, twin, ds, kw,
-                                         "a_example", device)
+        rec, bad, launched = _variant(torch, tiled, twin, ds, kw,
+                                      "a_example", device)
         print(twin.format_row({**kw, "total_epochs": rec["total_epochs"],
                                "total_time_s": rec["fit_wall_s"],
                                "test_llh": rec["test_llh"]}), flush=True)
@@ -4136,13 +4043,11 @@ def phase_solver_comparison(torch, tiled, smi: str, device="cuda",
         for kw in twin.variant_kwargs(args):
             if kw["solver"] != solver:
                 continue
-            rec, bad, launched, res = _variant(torch, tiled, twin, full, kw,
-                                               "b_full", device)
+            rec, bad, launched = _variant(torch, tiled, twin, full, kw,
+                                          "b_full", device)
             recs.append(rec)
             problems += bad
             counts.append(launched)
-            if kw["pathwise"] and kw["warm"]:
-                best_fit = res
         ratios, bad = _warm_below_cold(recs, f"b_full_{solver}")
         problems += bad
         base = next(r for r in recs if not r["pathwise"] and not r["warm"])
@@ -4154,14 +4059,6 @@ def phase_solver_comparison(torch, tiled, smi: str, device="cuda",
             "pathwise_warm_speedup_epochs":
                 base["total_epochs"] / best["total_epochs"],
             "pathwise_warm_speedup_seconds": base["seconds"] / best["seconds"]}
-        if device == "cuda":
-            # One more step of pathwise + warm from its fitted state, its
-            # parts timed apart and under the profiler.
-            phase_profile(torch, f"b_full_{solver}_pathwise_warm",
-                          SimpleNamespace(dataset=args.dataset, max_n=full_n),
-                          SimpleNamespace(cfg=twin.variant_config(
-                              solver, True, True, steps=args.steps),
-                              fit=best_fit))
 
     t0, small = time.perf_counter(), []
     for solver, pathwise, warm in SOLVER_CMP_CARD_VS_CPU:
@@ -4322,9 +4219,6 @@ def main() -> int:
     try:
         launches, fits = phase_train(torch, tiled)
         path_launches.append(launches)
-        for label in ("a_pathwise_warm", "c_ap_pathwise_warm_budget10",
-                      "d_sgd_pathwise_warm_budget10"):
-            phase_profile(torch, label, *fits[label])
     except Exception:
         traceback.print_exc()
         failures.append("train")
@@ -4349,9 +4243,7 @@ def main() -> int:
     phase_s["solver_comparison"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     try:
-        launches, prof_args = phase_large(torch, tiled)
-        path_launches.append(launches)
-        phase_profile(torch, "e_3droad_warm", *prof_args)
+        path_launches.append(phase_large(torch, tiled))
     except Exception:
         traceback.print_exc()
         failures.append("large")

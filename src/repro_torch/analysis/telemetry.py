@@ -39,7 +39,9 @@ EVENT_SCHEMAS: Dict[str, frozenset] = {
     "request": frozenset({"method", "path", "status", "dur_ms"}),
     "admission": frozenset({"outcome", "rows", "priority", "retry_after_s",
                             "inflight"}),
-    "span": frozenset({"span", "dur_ms", "error", "rows", "bucket"}),
+    "span": frozenset({"span", "dur_ms", "error", "rows", "bucket", "id",
+                       "parent", "thread", "start_ns", "end_ns", "step",
+                       "lanes"}),
     "solve_step": frozenset({"step", "solver", "lane", "res_y", "res_z",
                              "iters", "epochs", "step_time_s",
                              "res_history"}),

@@ -53,6 +53,7 @@ from repro_torch.core.outer import (
 from repro_torch.core.predict import pathwise_predict, predictive_metrics
 from repro_torch.gp.exact import exact_mll
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.obs.trace import stage
 from repro_torch.solvers import HOperator, SolverNumerics, solve
 from repro_torch.solvers.adaptive import (
     BudgetPolicy,
@@ -307,22 +308,25 @@ def fit(
                  "batch_idx": None if batch_idx is None
                  else batch_idx[state.step:state.step + k]}
         ts = time.perf_counter()
-        if policy is None:
-            state, metrics = outer_scan(state, x, y, cfg, k,
-                                        numerics=numerics,
-                                        generators=generator, **given)
-        else:
-            (state, policy), metrics = outer_scan(
-                state, x, y, cfg, k, numerics=numerics, budget=policy,
-                generators=generator, **given)
-        # torch-lint: disable=trace-host-sync -- one synchronise per round of steps, to time the round on the card's clock
-        _sync(state.carry_v)
-        dt = time.perf_counter() - ts
-        # torch-lint: disable=trace-host-sync -- the round's metrics read once per round of steps, one copy per metric
-        metrics = _host_metrics(metrics)
-        solver_time += _append_round(history, metrics, dt, k,
-                                     event_log=event_log,
-                                     solver=cfg.solver.name)
+        with stage("fit.round", step=state.step, lanes=1):
+            if policy is None:
+                state, metrics = outer_scan(state, x, y, cfg, k,
+                                            numerics=numerics,
+                                            generators=generator, **given)
+            else:
+                (state, policy), metrics = outer_scan(
+                    state, x, y, cfg, k, numerics=numerics, budget=policy,
+                    generators=generator, **given)
+            with stage("fit.sync"):
+                # torch-lint: disable=trace-host-sync -- one synchronise per round of steps, to time the round on the card's clock
+                _sync(state.carry_v)
+            dt = time.perf_counter() - ts
+            with stage("fit.readback"):
+                # torch-lint: disable=trace-host-sync -- the round's metrics read once per round of steps, one copy per metric
+                metrics = _host_metrics(metrics)
+                solver_time += _append_round(history, metrics, dt, k,
+                                             event_log=event_log,
+                                             solver=cfg.solver.name)
         step = state.step
         if eval_every and x_test is not None and step % eval_every == 0:
             j = step // eval_every - 1
@@ -461,16 +465,18 @@ def fit_batch(
     while step < cfg.num_steps:
         k = _round_size(step, cfg.num_steps, steps_per_round)
         ts = time.perf_counter()
-        rounds = _run_round(groups, cfg, k, None if batch_idx is None
-                            else batch_idx[done:done + k])
-        dt = time.perf_counter() - ts
-        for grp, metrics in zip(groups, rounds):
-            for local in range(grp.size):
-                lane = grp.lo + local
-                solver_times[lane] += _append_round(
-                    histories[lane], metrics, dt / lanes, k, lane=local,
-                    event_log=event_log, solver=cfg.solver.name,
-                    lane_tag=lane)
+        with stage("fit.round", step=step, lanes=lanes):
+            rounds = _run_round(groups, cfg, k, None if batch_idx is None
+                                else batch_idx[done:done + k])
+            dt = time.perf_counter() - ts
+            with stage("fit.readback"):
+                for grp, metrics in zip(groups, rounds):
+                    for local in range(grp.size):
+                        lane = grp.lo + local
+                        solver_times[lane] += _append_round(
+                            histories[lane], metrics, dt / lanes, k,
+                            lane=local, event_log=event_log,
+                            solver=cfg.solver.name, lane_tag=lane)
         step, done = groups[0].states.step, done + k
         if verbose:
             print(f"[fit_batch] step {step}/{cfg.num_steps} x {lanes} lanes "
@@ -639,8 +645,10 @@ class _LaneGroup:
                     self.states, self.x, self.y, cfg, k, lanes=True,
                     numerics=self.numerics, budget=self.policy,
                     generators=self.gens, batch_idx=sched)
-        _sync(self.states.carry_v)
-        return _host_metrics(metrics)
+        with stage("fit.sync"):
+            _sync(self.states.carry_v)
+        with stage("fit.readback"):
+            return _host_metrics(metrics)
 
 
 def pick_sgd_learning_rate(

@@ -40,6 +40,7 @@ from repro_torch.core.estimators import (
 )
 from repro_torch.core.gradients import mll_grad_estimate
 from repro_torch.gp.hyperparams import HyperParams
+from repro_torch.obs.trace import stage
 from repro_torch.solvers import HOperator, SolverConfig, SolverNumerics, solve
 from repro_torch.solvers.adaptive import (
     MIN_RECORD_HISTORY,
@@ -227,53 +228,56 @@ def _outer_step_lanes(states: OuterState, x: torch.Tensor, y: torch.Tensor,
     with a leading lane axis (``step``, ``mvms`` and ``host_syncs`` are the
     lane-stacked step's ints)."""
     lanes = num_lanes(states)
-    gens = _generators(generators, lanes)
-    kind = effective_kind(cfg, states.params)
-    if cfg.warm_start:
-        probes, v0 = states.probes, states.carry_v
-    else:
-        if probes is None:
-            probes = lanes_mod.stack([
-                resample_probes(g, lanes_mod.lane(states.probes, l), x)
-                for l, g in enumerate(gens)])
-        v0 = None
-    with torch.no_grad():
-        targets = build_system_targets(probes, x, y, states.params)
-        op = HOperator(x=x, params=states.params, kind=kind,
-                       backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
+    with stage("step", step=states.step, lanes=lanes):
+        gens = _generators(generators, lanes)
+        kind = effective_kind(cfg, states.params)
+        with stage("step.targets"), torch.no_grad():
+            if cfg.warm_start:
+                probes, v0 = states.probes, states.carry_v
+            else:
+                if probes is None:
+                    probes = lanes_mod.stack([
+                        resample_probes(g, lanes_mod.lane(states.probes, l), x)
+                        for l, g in enumerate(gens)])
+                v0 = None
+            targets = build_system_targets(probes, x, y, states.params)
+            op = HOperator(x=x, params=states.params, kind=kind,
+                           backend=cfg.backend, bm=cfg.bm, bn=cfg.bn)
         scfg = (cfg.solver if cfg.solver.kind == kind
                 else replace(cfg.solver, kind=kind))
-        res = solve(op, targets, v0, scfg, batch_idx=batch_idx,
-                    generator=gens, numerics=numerics)
-
-    grads, aux = mll_grad_estimate(
-        x, y, states.params, res.v, targets, cfg.estimator,
-        kind=kind, bm=cfg.bm, bn=cfg.bn, backend=cfg.backend,
-    )
-    with torch.no_grad():
-        new_params, new_adam = adam_update(
-            grads, states.adam, states.params, cfg.adam, maximize=True)
-        grad_norm = torch.sqrt(sum(
-            torch.sum(g**2, dim=tuple(range(1, g.ndim))) for g in grads.leaves))
-    new_states = OuterState(
-        params=new_params, adam=new_adam, probes=probes,
-        carry_v=res.v, step=states.step + 1,
-    )
-    metrics = {
-        "step": states.step,
-        "res_y": res.res_y,
-        "res_z": res.res_z,
-        "iters": res.iters,
-        "epochs": res.epochs,
-        "mvms": res.mvms,
-        "host_syncs": res.host_syncs,
-        "data_fit": aux.data_fit.detach(),
-        "hypers": new_params.flat().detach(),
-        "grad_norm": grad_norm,
-    }
-    if res.res_history is not None:
-        metrics["res_history"] = res.res_history
-    return new_states, metrics
+        with stage("step.solve"), torch.no_grad():
+            res = solve(op, targets, v0, scfg, batch_idx=batch_idx,
+                        generator=gens, numerics=numerics)
+        with stage("step.grad"):
+            grads, aux = mll_grad_estimate(
+                x, y, states.params, res.v, targets, cfg.estimator,
+                kind=kind, bm=cfg.bm, bn=cfg.bn, backend=cfg.backend,
+            )
+        with stage("step.adam"), torch.no_grad():
+            new_params, new_adam = adam_update(
+                grads, states.adam, states.params, cfg.adam, maximize=True)
+            grad_norm = torch.sqrt(sum(
+                torch.sum(g**2, dim=tuple(range(1, g.ndim)))
+                for g in grads.leaves))
+        new_states = OuterState(
+            params=new_params, adam=new_adam, probes=probes,
+            carry_v=res.v, step=states.step + 1,
+        )
+        metrics = {
+            "step": states.step,
+            "res_y": res.res_y,
+            "res_z": res.res_z,
+            "iters": res.iters,
+            "epochs": res.epochs,
+            "mvms": res.mvms,
+            "host_syncs": res.host_syncs,
+            "data_fit": aux.data_fit.detach(),
+            "hypers": new_params.flat().detach(),
+            "grad_norm": grad_norm,
+        }
+        if res.res_history is not None:
+            metrics["res_history"] = res.res_history
+        return new_states, metrics
 
 
 def outer_step_lanes(states: OuterState, x: torch.Tensor, y: torch.Tensor,

@@ -67,6 +67,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.registry import KIND_CODES, get_kernel
+from repro_torch.obs.trace import stage
 
 KERNEL_NAME = "kernel_mvm_fwd"
 BWD_KERNEL_NAME = "kernel_mvm_bwd"
@@ -688,18 +689,22 @@ def kernel_mvm_bwd_fused_cuda(u: torch.Tensor, g: torch.Tensor,
 
 def kernel_mvm_unit(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                     kind: str = "matern32") -> torch.Tensor:
-    """kappa(u, w) @ v: the CUDA kernel for CUDA tensors, plain for CPU ones."""
-    if u.device.type == "cpu":
-        return kernel_mvm_plain(u, w, v, kind=kind)
-    return kernel_mvm_cuda(u, w, v, kind=kind)
+    """kappa(u, w) @ v: the CUDA kernel for CUDA tensors, plain for CPU ones
+    (a ``kernel.fwd`` stage span)."""
+    with stage("kernel.fwd"):
+        if u.device.type == "cpu":
+            return kernel_mvm_plain(u, w, v, kind=kind)
+        return kernel_mvm_cuda(u, w, v, kind=kind)
 
 
 def kernel_mvm_bwd_unit(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                         v: torch.Tensor, kind: str = "matern32") -> torch.Tensor:
-    """Cotangent of ``u``: the CUDA kernel for CUDA tensors, plain for CPU."""
-    if u.device.type == "cpu":
-        return kernel_mvm_bwd_plain(u, w, g, v, kind=kind)
-    return kernel_mvm_bwd_cuda(u, w, g, v, kind=kind)
+    """Cotangent of ``u``: the CUDA kernel for CUDA tensors, plain for CPU
+    (a ``kernel.bwd`` stage span)."""
+    with stage("kernel.bwd"):
+        if u.device.type == "cpu":
+            return kernel_mvm_bwd_plain(u, w, g, v, kind=kind)
+        return kernel_mvm_bwd_cuda(u, w, g, v, kind=kind)
 
 
 def kernel_mvm_bwd_fused_unit(u: torch.Tensor, g: torch.Tensor,
@@ -707,11 +712,12 @@ def kernel_mvm_bwd_fused_unit(u: torch.Tensor, g: torch.Tensor,
                               kind: str = "matern32") -> torch.Tensor:
     """``du + dw`` of ``kappa(u, u) @ v`` in one call of the backward unit
     on ``(u, u, [g | v], [v | g])``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU ones."""
-    if u.device.type == "cpu":
-        return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=-1),
-                                    torch.cat([v, g], dim=-1), kind=kind)
-    return kernel_mvm_bwd_fused_cuda(u, g, v, kind=kind)
+    plain version for CPU ones (a ``kernel.bwd`` stage span)."""
+    with stage("kernel.bwd"):
+        if u.device.type == "cpu":
+            return kernel_mvm_bwd_plain(u, u, torch.cat([g, v], dim=-1),
+                                        torch.cat([v, g], dim=-1), kind=kind)
+        return kernel_mvm_bwd_fused_cuda(u, g, v, kind=kind)
 
 
 # The reference's Matérn-3/2 aliases of its two Pallas kernels, kept under

@@ -1,4 +1,5 @@
-"""Trace IDs, span timing, and a JSON-lines structured event log (stdlib).
+"""Trace IDs, span timing, a JSON-lines structured event log, and in-memory
+stage spans (stdlib).
 
 The port's own copy of ``repro.obs.trace``: the same ID rules, event
 format, rotation and ``$REPRO_OBS_LOG`` auto-configuration, with its own
@@ -17,18 +18,23 @@ Span events add ``span`` (name) and ``dur_ms``. Everything else is
 kind-specific payload. Writers are per-process (the path template may
 contain ``{pid}``), append-only, line-buffered behind a lock, so replica
 processes never interleave partial lines.
+
+Stage spans (:func:`stage`, :func:`recording`) time the hot path's layers
+in memory, on the profiler's clock, and reach the event log only when a
+recorder's records are written out (see the section at the end).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import json
 import os
 import re
 import secrets
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 # Header carrying the trace ID over HTTP, both directions.
 TRACE_HEADER = "X-Trace-Id"
@@ -268,3 +274,141 @@ def span(name: str, log: Optional[EventLog] = None,
                 payload["error"] = error
             target.emit("span", trace_id=trace_id, span=name,
                         dur_ms=sp.dur_ms, **payload)
+
+
+# -- in-memory stage spans ------------------------------------------------------
+#
+# The hot path (``fit``, the solvers, the kernel wrappers) opens a stage span
+# at each layer boundary with :func:`stage`. While no recorder is installed
+# that is one check of ``_RECORDER`` and a shared no-op context: no clock
+# read, no object made, no event written. :func:`recording` installs a
+# :class:`SpanRecorder` for a block; it keeps every span in memory on the
+# clock of ``torch.profiler``'s events (``time.time_ns``: the profiler's
+# host and CUPTI timestamps are Unix-epoch nanoseconds), so a span can be
+# laid over a profile of the same run. :meth:`SpanRecorder.write` writes the
+# records to an :class:`EventLog` once, after the work.
+
+
+class SpanRecord(NamedTuple):
+    """One finished stage span. ``parent`` is the ``id`` of the span that
+    enclosed it on the same thread (-1 at the top of its thread);
+    ``thread`` is the OS thread ID (``threading.get_native_id``), the one
+    the profiler gives the runtime calls the thread made; times are
+    integer ns on ``time.time_ns``'s clock. ``step`` and ``lanes`` are
+    given where the span has them (None elsewhere)."""
+
+    id: int
+    name: str
+    parent: int
+    thread: int
+    start_ns: int
+    end_ns: int
+    step: Optional[int] = None
+    lanes: Optional[int] = None
+
+
+class _NoStage:
+    """The stage span while nothing records: enters and exits, nothing
+    else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_STAGE = _NoStage()
+
+
+class _OpenStage:
+    __slots__ = ("rec", "name", "step", "lanes", "id", "parent", "start")
+
+    def __init__(self, rec: "SpanRecorder", name: str, step, lanes):
+        self.rec, self.name, self.step, self.lanes = rec, name, step, lanes
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        self.parent = stack[-1]
+        self.id = next(self.rec._ids)
+        stack.append(self.id)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        stack = self.rec._stack()
+        stack.pop()
+        # A plain tuple here: a SpanRecord costs several times as much to
+        # make, so records become SpanRecords when read.
+        self.rec._raw.append((self.id, self.name, self.parent, stack[0],
+                              self.start, end, self.step, self.lanes))
+        return False
+
+
+class SpanRecorder:
+    """The stage spans of a block, in memory (appends from several threads
+    are safe)."""
+
+    def __init__(self):
+        self._raw: list = []
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    @property
+    def records(self) -> list:
+        """The finished spans as :class:`SpanRecord`\\s, in the order they
+        ended."""
+        return [SpanRecord._make(r) for r in list(self._raw)]
+
+    def _stack(self) -> list:
+        """This thread's OS thread ID, then the IDs of its open spans after
+        -1 (the top)."""
+        try:
+            return self._local.stack
+        except AttributeError:
+            stack = self._local.stack = [threading.get_native_id(), -1]
+            return stack
+
+    def write(self, log: EventLog) -> int:
+        """Write every record to ``log`` as a ``span`` event (``span``,
+        ``dur_ms``, ``id``, ``parent``, ``thread``, ``start_ns``,
+        ``end_ns``, and ``step`` / ``lanes`` where set); the count."""
+        records = self.records
+        for r in records:
+            extra = {k: v for k, v in (("step", r.step), ("lanes", r.lanes))
+                     if v is not None}
+            log.emit("span", span=r.name, dur_ms=(r.end_ns - r.start_ns) / 1e6,
+                     id=r.id, parent=r.parent, thread=r.thread,
+                     start_ns=r.start_ns, end_ns=r.end_ns, **extra)
+        return len(records)
+
+
+_RECORDER: Optional[SpanRecorder] = None
+
+
+def stage(name: str, step: Optional[int] = None,
+          lanes: Optional[int] = None):
+    """A context that records the block as a stage span named ``name``
+    while a :class:`SpanRecorder` is installed (:func:`recording`), and
+    does nothing otherwise. Never writes to the event log."""
+    rec = _RECORDER
+    if rec is None:
+        return _NO_STAGE
+    return _OpenStage(rec, name, step, lanes)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every :func:`stage` span of the process for the block, in a
+    fresh :class:`SpanRecorder` (yielded); the one before is put back after
+    it."""
+    global _RECORDER
+    before, rec = _RECORDER, SpanRecorder()
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = before

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import stage
 from repro_torch.solvers.base import (
     SolveResult,
     SolverConfig,
@@ -67,7 +68,8 @@ def solve_ap(
     sysl = as_lanes(op, b, v0, cfg, numerics)
     op, lanes = sysl.op, sysl.lanes
     if block_chols is None:
-        block_chols = op.all_block_cholesky(bs)
+        with stage("solve.precond"):
+            block_chols = op.all_block_cholesky(bs)
     elif sysl.single:
         block_chols = block_chols[None]
     sysn = normalise_system(sysl.b, sysl.v0)
@@ -90,24 +92,26 @@ def solve_ap(
         syncs += 1
         if not run:
             break
-        keep = masked(active, lanes)
-        i = torch.argmax(torch.sum(r.reshape(lanes, nb, bs, -1) ** 2,
-                                   dim=(2, 3)), dim=1)
-        start = i * bs
-        rows = op.row_index(start, bs)  # each lane's block in (B * n) rows
-        delta = cholesky_solve(
-            r.reshape(-1, t_dim).index_select(0, rows).reshape(lanes, bs, -1),
-            chols.index_select(0, i + block_base))
-        v_new = v.reshape(-1, t_dim).index_add(
-            0, rows, delta.reshape(-1, t_dim)).reshape(v.shape)
-        r_new = r - op.col_block_mvm(start, bs, delta)
-        ry, rz = residual_norms(r_new)
-        history_record(hist, steps, ry, rz, keep)
-        v, r = keep(v_new, v), keep(r_new, r)
-        res_y, res_z = keep(ry, res_y), keep(rz, res_z)
-        if lanes > 1:
-            t = t + active.to(torch.int32)
-        steps += 1
+        with stage("solve.iter"):
+            keep = masked(active, lanes)
+            i = torch.argmax(torch.sum(r.reshape(lanes, nb, bs, -1) ** 2,
+                                       dim=(2, 3)), dim=1)
+            start = i * bs
+            rows = op.row_index(start, bs)  # each lane's block, of B * n rows
+            delta = cholesky_solve(
+                r.reshape(-1, t_dim).index_select(0, rows)
+                .reshape(lanes, bs, -1),
+                chols.index_select(0, i + block_base))
+            v_new = v.reshape(-1, t_dim).index_add(
+                0, rows, delta.reshape(-1, t_dim)).reshape(v.shape)
+            r_new = r - op.col_block_mvm(start, bs, delta)
+            ry, rz = residual_norms(r_new)
+            history_record(hist, steps, ry, rz, keep)
+            v, r = keep(v_new, v), keep(r_new, r)
+            res_y, res_z = keep(ry, res_y), keep(rz, res_z)
+            if lanes > 1:
+                t = t + active.to(torch.int32)
+            steps += 1
     return finish(sysl, v=denormalise(v, sysn.scale), res_y=res_y,
                   res_z=res_z, t=t, epochs_per_iter=bs / n, steps=steps,
                   mvms=1, syncs=syncs, hist=hist)

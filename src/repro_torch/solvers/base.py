@@ -34,6 +34,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import stage
+
 NORM_EPS = 1e-10
 
 # Iteration cap for epoch budgets (the reference's int32-safe cap).
@@ -378,7 +380,7 @@ def keep_going(go: torch.Tensor, t: torch.Tensor,
         flag = go.any()
     else:
         flag = go
-    with host_read():
+    with host_read(), stage("solve.read"):
         return go, bool(flag)
 
 

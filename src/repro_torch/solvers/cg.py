@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import stage
 from repro_torch.solvers.base import (
     SolveResult,
     SolverConfig,
@@ -67,7 +68,8 @@ def solve_cg(
     sysl = as_lanes(op, b, v0, cfg, numerics)
     op, lanes = sysl.op, sysl.lanes
     if precond is None:
-        precond = build_preconditioner(op, cfg.precond_rank)
+        with stage("solve.precond"):
+            precond = build_preconditioner(op, cfg.precond_rank)
     precond = precond.lifted()
     sysn = normalise_system(sysl.b, sysl.v0)
     max_iters, cap = sysl.caps(1.0)
@@ -88,23 +90,25 @@ def solve_cg(
         syncs += 1
         if not run:
             break
-        keep = masked(active, lanes)
-        hd = op.mvm(d)
-        mvms += 1
-        alpha = _guarded_div(gamma, torch.sum(d * hd, dim=-2, keepdim=True))
-        v_new = v + alpha * d
-        r_new = r - alpha * hd
-        p = precond.apply(r_new)
-        gamma_new = torch.sum(r_new * p, dim=-2, keepdim=True)
-        d_new = p + _guarded_div(gamma_new, gamma) * d
-        ry, rz = residual_norms(r_new)
-        history_record(hist, steps, ry, rz, keep)
-        v, r, d = keep(v_new, v), keep(r_new, r), keep(d_new, d)
-        gamma, res_y, res_z = keep(gamma_new, gamma), keep(ry, res_y), \
-            keep(rz, res_z)
-        if lanes > 1:
-            t = t + active.to(torch.int32)
-        steps += 1
+        with stage("solve.iter"):
+            keep = masked(active, lanes)
+            hd = op.mvm(d)
+            mvms += 1
+            alpha = _guarded_div(gamma,
+                                 torch.sum(d * hd, dim=-2, keepdim=True))
+            v_new = v + alpha * d
+            r_new = r - alpha * hd
+            p = precond.apply(r_new)
+            gamma_new = torch.sum(r_new * p, dim=-2, keepdim=True)
+            d_new = p + _guarded_div(gamma_new, gamma) * d
+            ry, rz = residual_norms(r_new)
+            history_record(hist, steps, ry, rz, keep)
+            v, r, d = keep(v_new, v), keep(r_new, r), keep(d_new, d)
+            gamma, res_y, res_z = keep(gamma_new, gamma), keep(ry, res_y), \
+                keep(rz, res_z)
+            if lanes > 1:
+                t = t + active.to(torch.int32)
+            steps += 1
     return finish(sysl, v=denormalise(v, sysn.scale), res_y=res_y,
                   res_z=res_z, t=t, epochs_per_iter=1.0, steps=steps,
                   mvms=mvms, syncs=syncs, hist=hist)

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import stage
 from repro_torch.solvers.base import (
     SolveResult,
     SolverConfig,
@@ -159,35 +160,36 @@ def solve_sgd(
         syncs += 1
         if not run:
             break
-        # torch-lint: disable=freeze-mask -- generators advance on stopped lanes by design: a stopped lane never resumes and keep() drops its update
-        start = schedule(steps) * bs
-        g = op.row_block_mvm(start, bs, v) - op._rows(bn, start, bs)
-        # m <- rho m - (gamma / b) g on the full vector: outside the batch
-        # the gradient is 0, so only the batch rows take the second term.
-        if lanes == 1:  # an int start: the rows are views, updated in place
-            blk = slice(start, start + bs)
-            m.mul_(momentum)
-            m[:, blk] -= step * g
-            v = v + m
-            r[:, blk] = -g
-            res_y, res_z = residual_norms(r)
-            history_record(hist, steps, res_y, res_z, masked(active, 1))
-        else:
-            keep = masked(active, lanes)
-            rows = op.row_index(start, bs)
-            m_new = (momentum * m).reshape(-1, t_dim)
-            m_new = m_new.index_copy(
-                0, rows, m_new.index_select(0, rows)
-                - (step * g).reshape(-1, t_dim)).reshape(m.shape)
-            v_new = v + m_new
-            r_new = r.reshape(-1, t_dim).index_copy(
-                0, rows, -g.reshape(-1, t_dim)).reshape(r.shape)
-            ry, rz = residual_norms(r_new)
-            history_record(hist, steps, ry, rz, keep)
-            v, m, r = keep(v_new, v), keep(m_new, m), keep(r_new, r)
-            res_y, res_z = keep(ry, res_y), keep(rz, res_z)
-            t = t + active.to(torch.int32)
-        steps += 1
+        with stage("solve.iter"):
+            # torch-lint: disable=freeze-mask -- generators advance on stopped lanes by design: a stopped lane never resumes and keep() drops its update
+            start = schedule(steps) * bs
+            g = op.row_block_mvm(start, bs, v) - op._rows(bn, start, bs)
+            # m <- rho m - (gamma / b) g on the full vector: outside the batch
+            # the gradient is 0, so only the batch rows take the second term.
+            if lanes == 1:  # an int start: the rows are views, set in place
+                blk = slice(start, start + bs)
+                m.mul_(momentum)
+                m[:, blk] -= step * g
+                v = v + m
+                r[:, blk] = -g
+                res_y, res_z = residual_norms(r)
+                history_record(hist, steps, res_y, res_z, masked(active, 1))
+            else:
+                keep = masked(active, lanes)
+                rows = op.row_index(start, bs)
+                m_new = (momentum * m).reshape(-1, t_dim)
+                m_new = m_new.index_copy(
+                    0, rows, m_new.index_select(0, rows)
+                    - (step * g).reshape(-1, t_dim)).reshape(m.shape)
+                v_new = v + m_new
+                r_new = r.reshape(-1, t_dim).index_copy(
+                    0, rows, -g.reshape(-1, t_dim)).reshape(r.shape)
+                ry, rz = residual_norms(r_new)
+                history_record(hist, steps, ry, rz, keep)
+                v, m, r = keep(v_new, v), keep(m_new, m), keep(r_new, r)
+                res_y, res_z = keep(ry, res_y), keep(rz, res_z)
+                t = t + active.to(torch.int32)
+            steps += 1
     extra, mvms = 0.0, 0
     if cfg.exact_final_residual:
         res_y, res_z = residual_norms(bn - op.mvm(v))

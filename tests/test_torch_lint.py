@@ -267,17 +267,18 @@ def test_freeze_mask_fires_on_an_unfrozen_solver_write(tmp_path, name, old,
 
 
 @pytest.mark.parametrize("name,anchor", [
-    ("cg.py", "        hd = op.mvm(d)\n"),
-    ("ap.py", "        ry, rz = residual_norms(r_new)\n"),
-    ("sgd.py", "        steps += 1\n"),
+    ("cg.py", "            hd = op.mvm(d)\n"),
+    ("ap.py", "            ry, rz = residual_norms(r_new)\n"),
+    ("sgd.py", "            steps += 1\n"),
 ])
 def test_host_sync_fires_on_a_read_added_to_a_solver_loop(tmp_path, name,
                                                           anchor):
     """A ``.item()`` and a ``float()`` of the residual added to a solver's
     loop are two new findings, beside the ``keep_going`` call (scanned with
     ``base.py``, whose annotations type the residuals as tensors)."""
-    extra = ("        worst = res_y.max().item()\n"
-             "        worst = worst + float(res_z.max())\n")
+    indent = anchor[:len(anchor) - len(anchor.lstrip())]
+    extra = (f"{indent}worst = res_y.max().item()\n"
+             f"{indent}worst = worst + float(res_z.max())\n")
     path = _mutated(tmp_path, name, anchor, extra + anchor)
     shutil.copy(PORT / "solvers" / "base.py", path.parent / "base.py")
     found = trace_safety.run([path, path.parent / "base.py"], tmp_path)

@@ -326,6 +326,17 @@ WIDE_SHAPES = ((8192, 8192, 120, 65), (8192, 8192, 200, 65))
 ELEVATORS_CG_SHAPE = (13446, 13446, 18, 33)
 # AP's column slab there: 13 446 rows padded to 13 500, 100-row blocks.
 AP_SLAB_ELEVATORS_SHAPE = (13500, 100, 18, 33)
+# The benchmark cells' forward calls: 3droad's full product (391 387 rows,
+# d = 3, [y | 32 probes]), AP's column slab there (padded to 392 000 rows,
+# 1000-row blocks) and protein's full product (41 157 rows, d = 9,
+# [y | 64 probes]); B = 4 of the last in LANE_FWD_SHAPES. Their plain
+# versions are checked on the first CELL_CHECK_ROWS rows (3droad's whole
+# plain product would take minutes, and its materialised library yardstick
+# 600 GB).
+CELL_3DROAD_CG_SHAPE = (391387, 391387, 3, 33)
+CELL_3DROAD_AP_SLAB_SHAPE = (392000, 1000, 3, 33)
+CELL_PROTEIN_CG_SHAPE = (41157, 41157, 9, 65)
+CELL_CHECK_ROWS = 2048
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 # Forward kernel: (label, shape, kinds timed). The shapes of earlier PRs
 # are timed for every kind, the large-dataset ones for Matérn-3/2 only
@@ -342,7 +353,10 @@ FWD_SHAPES = (("cg", CG_SHAPE, KINDS), ("predict", PREDICT_SHAPE, KINDS),
               ("wide_d200", WIDE_SHAPES[1], ("matern32",)),
               ("cg_elevators", ELEVATORS_CG_SHAPE, ("matern32",)),
               ("ap_col_slab_elevators", AP_SLAB_ELEVATORS_SHAPE,
-               ("matern32",)))
+               ("matern32",)),
+              ("cell_3droad_cg", CELL_3DROAD_CG_SHAPE, ("matern32",)),
+              ("cell_3droad_ap_slab", CELL_3DROAD_AP_SLAB_SHAPE, ("matern32",)),
+              ("cell_protein_cg", CELL_PROTEIN_CG_SHAPE, ("matern32",)))
 # Backward kernel, the fused call on 16 384 training rows of song (d = 90)
 # and buzz (d = 77), pre-scaled by the generator's lengthscale 1.6 sqrt(d)
 # so the kernel's values spread over (0, 1].
@@ -433,42 +447,53 @@ def bound_bwd(n: int, m: int, d: int, s: int, nbytes: int) -> dict:
 def phase_kernels(torch, tiled, registry) -> dict:
     """Kernel vs plain for every kind and shape; times, split counts and
     bounds at the path shapes; two launches on the split path bitwise
-    equal. The large-dataset shapes draw u with r2 ~ 6 on average (scaled
-    by sqrt(3 / d)); their w is u (wide) or u's first block of rows (AP's
-    slab), so coincident points meet as on the path."""
+    equal; the loop each call took, from the launch counts. The
+    large-dataset and cell shapes draw u with r2 ~ 6 on average (scaled by
+    sqrt(3 / d)); their w is u (wide, full products) or u's first block of
+    rows (AP's slab), so coincident points meet as on the path. The cell
+    shapes are checked on their first CELL_CHECK_ROWS rows; 3droad's full
+    product has no plain or library time (minutes, and 600 GB)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results, main_entry, by_shape = [], None, {}
     for label, (n, m, d, s), timed in FWD_SHAPES:
-        large = label.startswith(("ap_col_slab_", "wide_"))
+        large = label.startswith(("ap_col_slab_", "wide_", "cell_"))
+        rows = CELL_CHECK_ROWS if label.startswith("cell_") else n
         u = torch.randn((n, d), generator=gen, device="cuda")
         if large:
             u *= math.sqrt(3.0 / d)
-        if label.startswith(("cg", "wide_")):
+        if label.startswith(("cg", "wide_")) or label.endswith("_cg"):
             w = u  # H @ V: coincident points on the diagonal
         elif large:
             w = u[:m]
         else:
             w = torch.randn((m, d), generator=gen, device="cuda")
         v = torch.randn((m, s), generator=gen, device="cuda")
-        splits = tiled.split_plan(n, m, s, sms)
+        ws, _, splits = tiled.fwd_plan(n, m, d, s, sms)
         for kind in KINDS:
+            before = tiled.launch_counts()
             out = tiled.kernel_mvm_cuda(u, w, v, kind)
             again = tiled.kernel_mvm_cuda(u, w, v, kind)
             torch.cuda.synchronize()
+            after = tiled.launch_counts()
             if kind == "matern12":
-                ref = tiled.kernel_mvm_plain(u.double(), w.double(), v.double(),
-                                             kind)
+                ref = tiled.kernel_mvm_plain(u[:rows].double(), w.double(),
+                                             v.double(), kind)
                 tol = TOL_M12_VS_F64
             else:
-                ref = tiled.kernel_mvm_plain(u, w, v, kind)
+                ref = tiled.kernel_mvm_plain(u[:rows], w, v, kind)
                 tol = TOL_VS_PLAIN
-            err = (out.double() - ref.double()).abs().max().item()
+            err = (out[:rows].double() - ref.double()).abs().max().item()
             scale = ref.abs().max().item()
             bitwise = bool(torch.equal(out, again))
             rec = {"phase": "kernels", "shape": label, "n": n, "m": m, "d": d,
                    "s": s, "kind": kind, "splits": splits,
-                   "path": "wide" if tiled.fwd_wide(d, s) else "first",
+                   "path": ("ws" if ws else
+                            "wide" if tiled.fwd_wide(d, s) else "first"),
+                   "path_launches": {name: after[name] - before[name]
+                                     for name in (tiled.KERNEL_NAME,
+                                                  tiled.WS_KERNEL_NAME)},
+                   "rows_checked": rows,
                    "reference": "plain_f64" if kind == "matern12" else "plain_f32",
                    "max_abs_err": err, "max_abs_out": scale,
                    "rel_err": err / scale, "tol_rel": tol,
@@ -481,12 +506,14 @@ def phase_kernels(torch, tiled, registry) -> dict:
                 def library(u=u, w=w, v=v, kappa=kappa):
                     return kappa(torch.cdist(u, w) ** 2) @ v
 
-                reps = 20 if label == "cg" else 50
+                reps = 3 if label == "cell_3droad_cg" else (
+                    20 if label.startswith(("cg", "cell_")) else 50)
                 rec["ms"] = time_ms(lambda: tiled.kernel_mvm_cuda(u, w, v, kind),
                                     reps)
-                rec["plain_ms"] = time_ms(
+                huge = label == "cell_3droad_cg"
+                rec["plain_ms"] = None if huge else time_ms(
                     lambda: tiled.kernel_mvm_plain(u, w, v, kind), 3)
-                rec["library_ms"] = time_ms(library, 5)
+                rec["library_ms"] = None if huge else time_ms(library, 5)
                 rec.update(bound(n, m, d, s))
                 rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
                 rec["share_of_bound_fp32"] = rec["bound_fp32_ms"] / rec["ms"]
@@ -1792,12 +1819,12 @@ def phase_large(torch, tiled) -> tuple:
     second_passes = tiled.second_pass_counts()
     peak = torch.cuda.max_memory_allocated()
     n, d = out[True].state.carry_v.shape[0], ds.x_train.shape[1]
-    expected = dict.fromkeys(tiled.LAUNCHES, 0)
+    expected = {}
     problems, res_z = [], {}
     for warm in (False, True):
         h = out[warm].history
         for k, want in expected_launches(tiled, h, "ap", d, 32).items():
-            expected[k] += want
+            expected[k] = expected.get(k, 0) + want
         label = f"e_3droad_{'warm' if warm else 'cold'}"
         res_z[warm] = [float(r) for r in h["res_z"]]
         emit({"phase": "large", "run": label, "warm_start": warm,
@@ -1835,6 +1862,8 @@ def phase_large(torch, tiled) -> tuple:
     for k, want in expected.items():
         if launches[k] == 0 or launches[k] != want:
             problems.append(f"e_3droad: {k} launches {launches[k]} != {want}")
+    if launches[tiled.WS_KERNEL_NAME] == 0:  # its full products take it
+        problems.append(f"e_3droad: no {tiled.WS_KERNEL_NAME} launches")
     if n % 1000 or not all(math.isfinite(x) for x in init.flat().tolist()):
         problems.append(f"e_3droad: n {n} or heuristic {init.flat().tolist()}")
     if problems:
@@ -1969,6 +1998,7 @@ def phase_large_steps(torch, tiled) -> tuple:
         for k in tiled.LAUNCHES:
             totals[k] += launches[k]
             second_totals[k] += second_passes[k]
+        for k in expected:
             if launches[k] == 0 or launches[k] != expected[k]:
                 problems.append(f"{name}: {k} launches {launches[k]} != "
                                 f"{expected[k]}")
@@ -1987,7 +2017,8 @@ LANE_COUNTS = (1, 4)
 # Lane-batched kernel checks at B = 1 and 4 (label, n, m, d, s), each lane
 # held to the plain version of its operands and timed.
 LANE_FWD_SHAPES = (("cg", *CG_SHAPE), ("ap_col_slab", *AP_COL_SLAB_SHAPE),
-                   ("sgd_slab_padded", *SGD_SLAB_PADDED_SHAPE))
+                   ("sgd_slab_padded", *SGD_SLAB_PADDED_SHAPE),
+                   ("cell_protein_cg", *CELL_PROTEIN_CG_SHAPE))
 LANE_BWD_SHAPES = (("cg_fused", 12150, 12150, 26, 65),
                    ("cg_fused_s272", 12150, 12150, 26, 136))
 # A lane of a lane-stacked fit vs the single fit of its cell: the lanes'
@@ -2042,7 +2073,9 @@ def phase_kernel_lanes(torch, tiled) -> dict:
                 splits = tiled.bwd_split_plan(n, n, sms, lanes)
                 tol = TOL_BWD_VS_PLAIN
             else:
-                w = u if label == "cg" else torch.randn(
+                if label.startswith("cell_"):
+                    u *= math.sqrt(3.0 / d)
+                w = u if label.endswith("cg") else torch.randn(
                     (lanes, m, d), generator=gen, device="cuda")
                 v = torch.randn((lanes, m, s), generator=gen, device="cuda")
 
@@ -2055,7 +2088,8 @@ def phase_kernel_lanes(torch, tiled) -> dict:
                 def library(u=u, w=w, v=v):
                     return kappa(torch.cdist(u, w) ** 2) @ v
                 one = bound(n, m, d, s)
-                splits = tiled.split_plan(n, m, s, sms, lanes)
+                ws, _, splits = tiled.fwd_plan(n, m, d, s, sms, lanes)
+                rec["path"] = "ws" if ws else "first"
                 tol = TOL_VS_PLAIN
             got = call()
             torch.cuda.synchronize()
@@ -2068,13 +2102,16 @@ def phase_kernel_lanes(torch, tiled) -> dict:
             rec[key] = {"splits": splits, "rel_err_per_lane": errs,
                         "tol_rel": tol}
             ms = time_ms(call, 10 if fused else 20)
+            # The materialised yardstick of four protein lanes would hold
+            # three 27 GB matrices at once: not timed.
+            too_big = lanes * n * m > 2 * 10 ** 9
             rec[key].update({
                 "ms": ms, "ms_per_lane": ms / lanes,
                 "bound_ms": lanes * one["bound_ms"],
                 "bound_by": one["bound_by"], "bound_unit": one["bound_unit"],
                 "plain_ms": time_ms(lambda: [plain(i) for i in range(lanes)],
                                     2),
-                "library_ms": time_ms(library, 3)})
+                "library_ms": None if too_big else time_ms(library, 3)})
             if not all(math.isfinite(e) and e <= tol for e in errs):
                 bad.append((label, lanes, errs))
         emit(rec)
@@ -2183,6 +2220,7 @@ def _run_batch(torch, tiled, label, args) -> tuple:
         for k in tiled.LAUNCHES:
             totals[k] += launches[k]
             second_totals[k] += second[k]
+        for k in expected:
             if launches[k] == 0 or launches[k] != expected[k]:
                 problems.append(f"{label} {cfg.kind}: {k} launches "
                                 f"{launches[k]} != expected {expected[k]}")
@@ -2303,7 +2341,7 @@ def _budget_lanes(torch, tiled) -> tuple:
           "fwd_second_pass_calls": second[tiled.KERNEL_NAME],
           "bwd_second_pass_calls": second[tiled.BWD_KERNEL_NAME],
           "lanes": recs})
-    for k in tiled.LAUNCHES:
+    for k in expected:
         if launches[k] == 0 or launches[k] != expected[k]:
             problems.append(f"budget lanes: {k} launches {launches[k]} != "
                             f"expected {expected[k]}")
@@ -2883,12 +2921,12 @@ def _sharded_lanes(torch, tiled, x, y) -> tuple:
 
     plain, alone_lanes = unsharded(), alone()
     sharded, seconds, counts = _counted(torch, tiled, concurrent)
-    expected = dict.fromkeys(tiled.LAUNCHES, 0)
+    expected = {}
     for g in range(DIST_LANE_DEVICES):
         part = expected_lane_launches(tiled, cfg, sharded[g * per:(g + 1) * per],
                                       x.shape[1])
-        for k in expected:
-            expected[k] += part[k]
+        for k, want in part.items():
+            expected[k] = expected.get(k, 0) + want
     _check_counts("sharded lanes", counts, expected, problems)
     runs = {"unsharded": unsharded, "groups_alone_in_turn": alone,
             "concurrent": concurrent}

@@ -15,25 +15,32 @@ and ``csrc/kernel_mvm_bwd.cu``.
 
 * :func:`kernel_mvm_cuda` and :func:`kernel_mvm_bwd_cuda` launch the
   hand-written kernels on CUDA tensors (and raise on anything else). They
-  take any d and s: each kernel has a second path for large d, and the
-  backward wrapper splits the columns of (g, v) over launches where its
+  take any d and s: the forward kernel has a warp-specialised loop for the
+  (d, s) whose rings fit in shared memory (:func:`fwd_ws`; its V split
+  once per call by a pre-split pass) and its first loop, with a wide path
+  for large d, for the rest; the backward has a second path for large d,
+  and its wrapper splits the columns of (g, v) over launches where its
   row tiles would not fit in shared memory. They count their launches in
-  :data:`LAUNCHES`, and the launches that took their second pass (the
-  split sum) in :data:`SECOND_PASSES`, both under one lock
-  (:func:`count_launch`), so threads that launch at once lose no count.
+  :data:`LAUNCHES` (the forward calls that took the warp-specialised loop
+  under :data:`WS_KERNEL_NAME` too), and the launches that took their
+  second pass (the split sum) in :data:`SECOND_PASSES`, both under one
+  lock (:func:`count_launch`), so threads that launch at once lose no
+  count.
   :func:`kernel_mvm_bwd_fused_cuda` is the fused call: it builds the
   concatenated operands and launches the backward kernel once (once per
   column chunk).
-* :func:`split_plan` and :func:`bwd_split_plan` pick how many column splits
-  each kernel runs, from the shapes and the card's SM count;
-  :func:`bwd_s_chunks` the backward's column chunks of (g, v).
+* :func:`split_plan`, :func:`ws_split_plan` and :func:`bwd_split_plan`
+  pick how many column splits each kernel (and loop) runs, from the shapes
+  and the card's SM count (:func:`fwd_plan` picks the forward's loop and
+  plan); :func:`bwd_s_chunks` the backward's column chunks of (g, v).
 * :func:`kernel_mvm_plain` and :func:`kernel_mvm_bwd_plain` are the same
   functions in plain tiled PyTorch, with ``r2`` by direct differences as in
   the kernels.
 * :func:`kernel_mvm_mirror` and :func:`kernel_mvm_bwd_mirror` repeat the
   kernels' arithmetic on the CPU for the tests: their column tiles and
   splits, the split sum in split order, and their 3xTF32 products
-  (:func:`tf32_round`).
+  (:func:`tf32_round`); :func:`presplit_plain` is the pre-split pass's
+  workspace in plain form, which the card's pass is held to bit for bit.
 * :func:`kernel_mvm_unit`, :func:`kernel_mvm_bwd_unit` and
   :func:`kernel_mvm_bwd_fused_unit` pick between them
   by the device of their inputs: the plain version for CPU tensors, the
@@ -70,6 +77,9 @@ from repro_torch.kernels.registry import KIND_CODES, get_kernel
 from repro_torch.obs.trace import stage
 
 KERNEL_NAME = "kernel_mvm_fwd"
+# The forward calls that took the warp-specialised loop (a subset of
+# KERNEL_NAME's, which counts every forward call).
+WS_KERNEL_NAME = "kernel_mvm_fwd_ws"
 BWD_KERNEL_NAME = "kernel_mvm_bwd"
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "kernel_mvm.cu", CSRC / "kernel_mvm_bwd.cu")
@@ -82,13 +92,23 @@ NVCC_FLAGS = (
 # Launches of each kernel wrapper since the last reset (chip_smoke.py reads
 # them to show the main path went through the kernels), and the calls
 # among them that ran the second pass (the sum over column splits).
-LAUNCHES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
-SECOND_PASSES = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
+# WS_KERNEL_NAME counts the forward calls that took the warp-specialised
+# loop, so KERNEL_NAME less it is the calls that took the first loop or
+# the wide path.
+LAUNCHES = {KERNEL_NAME: 0, WS_KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
+SECOND_PASSES = {KERNEL_NAME: 0, WS_KERNEL_NAME: 0, BWD_KERNEL_NAME: 0}
 
 # Geometry of csrc/kernel_mvm.cu: 128-row blocks, 128-row column tiles,
 # s-chunks of 8 * NT columns with NT <= 9, row strides padded as the kernel
 # pads them; for planning splits and rejecting shapes before the launch.
 FWD_BM, FWD_BN, FWD_MAX_NT = 128, 128, 9
+# Its warp-specialised loop: 128-row blocks, 64-row column tiles, s-chunks
+# of 40 (s <= 40) or 72 columns, two stages of the kappa and V rings and
+# three of the w ring; it takes the (d, s) whose rings fit in shared
+# memory (:func:`fwd_ws`).
+WS_BM, WS_BN, WS_STAGES, WS_WSTAGES = 128, 64, 2, 3
+# Columns of its tensor-core sums (each added to the running sum in fp32).
+WS_SUM_COLS = 32
 # Geometry of csrc/kernel_mvm_bwd.cu: 128-row blocks, 64-row column tiles,
 # row strides padded as the kernel pads them. Its per-thread sums hold up
 # to 96 coordinates; for d > 96 its wide path stages u and w 96
@@ -115,13 +135,16 @@ _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
 
 
-def count_launch(name: str, second_pass: bool = False) -> None:
+def count_launch(name: str, second_pass: bool = False,
+                 path: Optional[str] = None) -> None:
     """Add one launch of kernel ``name`` (and one second-pass call when
-    ``second_pass``) to the counts, under their lock."""
+    ``second_pass``) to the counts, under their lock; with ``path`` (the
+    loop the call took) count it under that name too."""
     with _count_lock:
-        LAUNCHES[name] += 1
-        if second_pass:
-            SECOND_PASSES[name] += 1
+        for key in (name, path) if path else (name,):
+            LAUNCHES[key] += 1
+            if second_pass:
+                SECOND_PASSES[key] += 1
 
 
 def reset_launch_counts() -> None:
@@ -256,6 +279,99 @@ def bwd_split_plan(n: int, m: int, num_sms: int, lanes: int = 1) -> int:
     return _plan_splits(-(-n // BWD_BM), -(-m // BWD_BN), num_sms, lanes)
 
 
+def _ws_width(s: int) -> int:
+    """Columns of the warp-specialised loop's s-chunk (8 NT)."""
+    return 40 if s <= 40 else 72
+
+
+def _ws_grid(n: int, m: int, s: int) -> tuple:
+    """(row tiles, s-chunks, column tiles) of the warp-specialised loop."""
+    return (-(-n // WS_BM), -(-s // _ws_width(s)), -(-m // WS_BN))
+
+
+def _ws_smem_bytes(d: int, s: int) -> int:
+    """Dynamic shared memory of the warp-specialised loop (the kernel's
+    ``ws_smem_bytes``): two stages of the kappa tile and of the V chunk
+    (each big and small), three of w's rows, u's row tile, and two 8-byte
+    barriers per stage."""
+    dp = _padded_d(d)
+    floats = (WS_STAGES * (2 * WS_BM * WS_BN + 2 * _ws_width(s) * WS_BN)
+              + WS_WSTAGES * WS_BN * dp + WS_BM * dp)
+    return 4 * floats + 8 * 2 * (2 * WS_STAGES + WS_WSTAGES)
+
+
+def fwd_ws(d: int, s: int) -> bool:
+    """Whether the warp-specialised loop's rings fit in shared memory at
+    (d, s): d <= 44 at s <= 40 and d <= 20 at s > 40 (the paper's d = 3,
+    9, 11, 17, 18 and 20 at any s, d = 26 at s <= 40; d = 77 and 90
+    never). :func:`fwd_plan` takes the loop where they do and its blocks
+    walk enough column tiles."""
+    return _ws_smem_bytes(d, s) <= _MAX_SMEM_BYTES
+
+
+def ws_tile_floats(d: int, s: int) -> int:
+    """Floats of one column tile in the pre-split workspace: w's 64 rows at
+    the padded stride, then per s-chunk V_big^T and V_small^T."""
+    width = _ws_width(s)
+    return WS_BN * _padded_d(d) + 2 * -(-s // width) * width * WS_BN
+
+
+# The tiles' worth of time a block of the warp-specialised loop spends
+# filling and draining its rings, and the most column tiles one of its
+# running sums adds: the fp32 sum's rounding grows with its length, and
+# at 256 tiles (16 384 columns) it stays below the first loop's at the
+# cells' shapes (PERF.md, PR 31).
+_WS_FILL = 2
+_WS_MAX_TILES = 256
+
+
+@lru_cache(maxsize=4096)
+def ws_split_plan(n: int, m: int, s: int, num_sms: int, lanes: int = 1) -> int:
+    """Number of column splits for the warp-specialised loop: at least
+    enough that no split walks more than :data:`_WS_MAX_TILES` column
+    tiles; with its blocks (row tiles x s-chunks x lanes x splits) one per
+    SM, the count from there up to sixteen waves that minimises the waves
+    times the column tiles a block walks plus :data:`_WS_FILL`, the
+    smallest such count on ties."""
+    rows, chunks, tiles = _ws_grid(n, m, s)
+    base = rows * chunks * lanes
+    if tiles <= 1:
+        return 1
+    least = min(-(-tiles // _WS_MAX_TILES), 65535 // lanes)
+    most = max(least, min(tiles, 65535 // lanes, (16 * num_sms) // base))
+    return min(range(least, most + 1),
+               key=lambda k: (-(-base * k // num_sms)) * (-(-tiles // k) + _WS_FILL))
+
+
+# The fewest column tiles a block of the warp-specialised loop walks, and
+# the fewest 128-row tiles of u, for a call to take it (PERF.md, PR 31:
+# both loops timed at 2 .. 24 tiles a block). Below six tiles its rings'
+# fill and drain cost more than the loop saves where the row tiles leave
+# SMs idle (AP's slabs at elevators, 106 row tiles: 1.27x the first loop's
+# time at 2 tiles, 1.10x at 4, 1.01x at 6, 0.95x at 8), though not where
+# they fill the card many times over (3droad and protein: 0.78-0.84x at 4
+# tiles). Over one to three row tiles, a prediction's, the pre-split pass
+# over all of w and V costs more than the few pairs it serves (64 rows
+# against 41 157 or 391 387 columns: 1.09-1.17x at 4 and 46 tiles).
+_WS_MIN_TILES = 6
+_WS_MIN_ROW_TILES = 4
+
+
+@lru_cache(maxsize=4096)
+def fwd_plan(n: int, m: int, d: int, s: int, num_sms: int,
+             lanes: int = 1) -> tuple:
+    """(warp-specialised?, column tile rows, splits) of a forward call: the
+    warp-specialised loop where :func:`fwd_ws`, u has at least
+    :data:`_WS_MIN_ROW_TILES` row tiles and the loop's plan has each block
+    walk at least :data:`_WS_MIN_TILES` column tiles, else the first
+    loop."""
+    if fwd_ws(d, s) and -(-n // WS_BM) >= _WS_MIN_ROW_TILES:
+        splits = ws_split_plan(n, m, s, num_sms, lanes)
+        if -(-m // WS_BN) // splits >= _WS_MIN_TILES:
+            return True, WS_BN, splits
+    return False, FWD_BN, split_plan(n, m, s, num_sms, lanes)
+
+
 def split_tile_range(z: int, splits: int, tiles: int) -> tuple:
     """Column tiles [lo, hi) that split ``z`` walks (the kernel's formula)."""
     return z * tiles // splits, (z + 1) * tiles // splits
@@ -284,37 +400,80 @@ def kernel_mvm_mirror(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                       passes: int = 3) -> torch.Tensor:
     """The forward kernel's arithmetic in plain PyTorch, for the tests.
 
-    fp32 CPU tensors. Column tiles of 128 rows of (w, v); ``r2`` by direct
-    differences and the registry profile in fp32 (the kernel evaluates the
-    profile on the special-function units, within a few ulps); ``kappa @
-    V`` per tile with TF32 operands (:func:`_tf32_product`, ``passes`` 3 or
-    1); each split's sum over its own tiles, and the splits summed in split
-    order. ``splits`` defaults to :func:`split_plan` on an H100's 132 SMs.
-    Lane-stacked operands mirror each lane at the split count of the
-    lane-stacked launch (the lanes are independent in the kernel).
+    fp32 CPU tensors. Column tiles of (w, v) as the call's loop takes them
+    (:func:`fwd_plan`: 64 rows in the warp-specialised loop, 128 in the
+    first); ``r2`` by direct differences and the registry profile in fp32
+    (the kernel evaluates the profile on the special-function units, within
+    a few ulps); ``kappa @ V`` with TF32 operands (:func:`_tf32_product`,
+    ``passes`` 3 or 1) per tensor-core sum (the first loop's whole tile,
+    the warp-specialised loop's half tile of 32 columns), each added to
+    its split's running sum; the splits summed in split order. ``splits``
+    defaults to the plan on an H100's 132 SMs. Lane-stacked operands
+    mirror each lane at the split count of the lane-stacked launch (the
+    lanes are independent in the kernel).
     """
+    lanes = u.shape[0] if u.ndim == 3 else 1
+    (n, d), m, s = u.shape[-2:], w.shape[-2], v.shape[-1]
+    ws, bn, planned = fwd_plan(n, m, d, s, 132, lanes)
+    step = WS_SUM_COLS if ws else bn
+    if splits is None:
+        splits = planned
     if u.ndim == 3:
-        if splits is None:
-            splits = split_plan(u.shape[1], w.shape[1], v.shape[2], 132,
-                                u.shape[0])
-        return torch.stack([kernel_mvm_mirror(a, b, c, kind, splits, passes)
-                            for a, b, c in zip(u, w, v)])
+        return torch.stack([_mirror_lane(a, b, c, kind, splits, passes, bn,
+                                         step) for a, b, c in zip(u, w, v)])
+    return _mirror_lane(u, w, v, kind, splits, passes, bn, step)
+
+
+def _mirror_lane(u, w, v, kind, splits, passes, bn, step) -> torch.Tensor:
+    """One lane of :func:`kernel_mvm_mirror`: column tiles of ``bn`` rows,
+    tensor-core sums of ``step`` columns."""
     kappa = get_kernel(kind).kappa_from_r2
     n, m, s = u.shape[0], w.shape[0], v.shape[1]
-    tiles = _fwd_grid(n, m, s)[2]
-    if splits is None:
-        splits = split_plan(n, m, s, 132)
+    tiles = -(-m // bn)
     total = None
     for z in range(splits):
         lo, hi = split_tile_range(z, splits, tiles)
         part = torch.zeros((n, s), dtype=torch.float32)
-        for jt in range(lo, hi):
-            j = slice(jt * FWD_BN, (jt + 1) * FWD_BN)
+        for j0 in range(lo * bn, hi * bn, step):
+            j = slice(j0, j0 + step)
             diff = u[:, None, :] - w[None, j, :]
             part = part + _tf32_product(kappa(torch.sum(diff * diff, dim=-1)),
                                         v[j], passes)
         total = part if total is None else total + part
     return total
+
+
+def presplit_plain(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The warp-specialised loop's pre-split workspace in plain PyTorch:
+    for w (m, d) and v (m, s), or lane-stacked (B, m, d) and (B, m, s), a
+    flat fp32 tensor of ceil(m / 64) column tiles per lane of
+    :func:`ws_tile_floats` each: w's 64 rows at the kernel's padded stride,
+    then per s-chunk V_big^T and V_small^T (``tf32_round`` of v and of v
+    less its big part, as :func:`_tf32_product` splits its second operand)
+    in the core-matrix layout the tensor cores read, element (c, j) of a
+    chunk at (c // 8) * 512 + (j // 4) * 32 + (c % 8) * 4 + j % 4; zeros
+    past m, d and s."""
+    lead = w.shape[:-2]
+    (m, d), s = w.shape[-2:], v.shape[-1]
+    lanes = w.reshape(-1, m, d).shape[0]
+    width, dp, tiles = _ws_width(s), _padded_d(d), -(-m // WS_BN)
+    chunks = -(-s // width)
+    wp = torch.zeros((lanes, tiles * WS_BN, dp), dtype=torch.float32)
+    wp[:, :m, :d] = w.reshape(lanes, m, d)
+    vp = torch.zeros((lanes, tiles * WS_BN, chunks * width), dtype=torch.float32)
+    vp[:, :m, :s] = v.reshape(lanes, m, s)
+    big = tf32_round(vp)
+    small = tf32_round(vp - big)
+
+    def core(x):  # (lanes, j, c) -> (lanes, tiles, chunks, width * 64)
+        x = x.reshape(lanes, tiles, WS_BN // 4, 4, chunks, width // 8, 8)
+        return x.permute(0, 1, 4, 5, 2, 6, 3).reshape(
+            lanes, tiles, chunks, width * WS_BN)
+
+    vt = torch.stack([core(big), core(small)], dim=3)
+    packed = torch.cat([wp.reshape(lanes, tiles, WS_BN * dp),
+                        vt.reshape(lanes, tiles, -1)], dim=-1)
+    return packed.reshape(*lead, -1) if lead else packed.reshape(-1)
 
 
 def kernel_mvm_bwd_mirror(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -422,6 +581,14 @@ def _library() -> ctypes.CDLL:
             fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fwd.restype = ctypes.c_int
+            ws = lib.repro_kernel_mvm_fwd_ws
+            ws.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+            ws.restype = ctypes.c_int
+            pre = lib.repro_kernel_mvm_fwd_presplit
+            pre.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            pre.restype = ctypes.c_int
             bwd = lib.repro_kernel_mvm_bwd
             bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
@@ -535,7 +702,7 @@ def _check_index_range(name: str, n: int, m: int, d: int, s: int,
 
 
 def _launch(name: str, fn, device: torch.device, *args,
-            second_pass: bool = False) -> None:
+            second_pass: bool = False, path: Optional[str] = None) -> None:
     """Call one C entry point on the current stream; raise on its code,
     else count the launch (:func:`count_launch`)."""
     with torch.cuda.device(device):
@@ -544,7 +711,7 @@ def _launch(name: str, fn, device: torch.device, *args,
         msg = (_library().repro_cuda_error_string(rc).decode() if rc > 0
                else "rejected arguments")
         raise RuntimeError(f"{name} launch failed ({rc}): {msg}")
-    count_launch(name, second_pass)
+    count_launch(name, second_pass, path)
 
 
 def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -553,14 +720,17 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     or (B, n, s) for lane-stacked (B, n, d), (B, m, d), (B, m, s) operands
     (one launch for all lanes).
 
-    The column range is split as :func:`split_plan` says for the card's SM
-    count and the lanes; with more than one split the partial sums go to a
-    (splits, B, n, s) workspace and the kernel's second pass adds them in
-    split order. Any d (the kernel's wide path where :func:`fwd_wide`) and
-    any s. Raises on inputs that require grad (forward only), on tensors
-    that are not fp32, contiguous, 2-D (or all 3-D) CUDA tensors of one
-    device, on mismatched shapes, on an unknown kind and past the 32-bit
-    index range.
+    Where :func:`fwd_plan` says, the call takes the warp-specialised loop (its
+    pre-split pass writes w and the split V to a workspace of
+    :func:`ws_tile_floats` per column tile and lane, counted under
+    :data:`WS_KERNEL_NAME` too), else the first loop (or its wide path
+    where :func:`fwd_wide`). The column range is split as :func:`fwd_plan`
+    says for the card's SM count and the lanes; with more than one split
+    the partial sums go to a (splits, B, n, s) workspace and the kernel's
+    second pass adds them in split order. Any d and any s. Raises on
+    inputs that require grad (forward only), on tensors that are not fp32,
+    contiguous, 2-D (or all 3-D) CUDA tensors of one device, on mismatched
+    shapes, on an unknown kind and past the 32-bit index range.
     """
     lanes = _check_inputs("kernel_mvm_cuda", u=u, w=w, v=v)
     (n, d), (m, dw), (mv, s) = u.shape[-2:], w.shape[-2:], v.shape[-2:]
@@ -577,15 +747,47 @@ def kernel_mvm_cuda(u: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                       device=u.device)
     if u.numel() == 0 or s == 0:
         return out
-    splits = split_plan(n, m, s, _num_sms(u.device.index), b)
+    ws, _, splits = fwd_plan(n, m, d, s, _num_sms(u.device.index), b)
     workspace = (torch.empty((splits, b, n, s), dtype=torch.float32,
                              device=u.device) if splits > 1 else None)
-    _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
-            u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
-            workspace.data_ptr() if workspace is not None else None,
+    wptr = workspace.data_ptr() if workspace is not None else None
+    if not ws:
+        _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd, u.device,
+                u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), wptr,
+                n, m, d, s, KIND_CODES[kind], splits, b,
+                second_pass=splits > 1)
+        return out
+    packed = (torch.empty(b * -(-m // WS_BN) * ws_tile_floats(d, s),
+                          dtype=torch.float32, device=u.device)
+              if m > 0 else None)
+    _launch(KERNEL_NAME, _library().repro_kernel_mvm_fwd_ws, u.device,
+            u.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), wptr,
+            packed.data_ptr() if packed is not None else None,
             n, m, d, s, KIND_CODES[kind], splits, b,
-            second_pass=splits > 1)
+            second_pass=splits > 1, path=WS_KERNEL_NAME)
     return out
+
+
+def presplit_cuda(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The warp-specialised loop's pre-split pass alone on CUDA tensors, w
+    (m, d) and v (m, s) or lane-stacked: the workspace that
+    :func:`presplit_plain` writes in plain PyTorch (for the card's tests;
+    not counted as a launch)."""
+    lanes = _check_inputs("presplit_cuda", w=w, v=v)
+    (m, d), s = w.shape[-2:], v.shape[-1]
+    if v.shape[-2] != m or m == 0 or d == 0 or s == 0:
+        raise ValueError(f"presplit_cuda: shapes w{tuple(w.shape)} "
+                         f"v{tuple(v.shape)}")
+    b = max(lanes, 1)
+    packed = torch.empty((*w.shape[:-2], -(-m // WS_BN) * ws_tile_floats(d, s)),
+                         dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        rc = _library().repro_kernel_mvm_fwd_presplit(
+            w.data_ptr(), v.data_ptr(), packed.data_ptr(), m, d, s, b,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"presplit_cuda launch failed ({rc})")
+    return packed
 
 
 def kernel_mvm_bwd_cuda(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,

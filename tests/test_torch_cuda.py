@@ -86,6 +86,107 @@ def test_cuda_fwd_kernel_matches_plain(kind, shape):
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
+# Shapes (lanes, n, m, d, s) that take the forward kernel's warp-specialised
+# loop: one split of 8 column tiles, ragged rows and columns, s = 33, 65 and
+# two 72-column chunks (130), d at the loop's limits (20 at s > 40, 44 at
+# s <= 40), column splits with their second pass, and three lanes.
+WS_SHAPES = [(1, 8576, 512, 9, 65), (1, 8577, 600, 7, 33),
+             (1, 4096, 4096, 3, 33), (1, 4096, 4096, 20, 130),
+             (1, 4096, 2048, 44, 40), (3, 4096, 4096, 9, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WS_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WS_SHAPES])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_fwd_ws_loop_matches_plain(kind, shape):
+    """On a card: calls that take the warp-specialised loop (each counted
+    under ``kernel_mvm_fwd_ws`` as well as ``kernel_mvm_fwd``) vs the plain
+    version, lane by lane, at the tolerances above; two launches bitwise
+    equal."""
+    _cuda_or_skip()
+    lanes, n, m, d, s = shape
+    u, w, v = _fwd_inputs(lanes * n, lanes * m, d, s, seed=6)
+    u, w, v = (x.reshape(lanes, -1, x.shape[-1]) for x in (u, w, v))
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    assert tiled.fwd_plan(n, m, d, s, sms, lanes)[0]
+    tiled.reset_launch_counts()
+    first = tiled.kernel_mvm_cuda(u, w, v, kind)
+    second = tiled.kernel_mvm_cuda(u, w, v, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert tiled.LAUNCHES[tiled.KERNEL_NAME] == 2
+    assert tiled.LAUNCHES[tiled.WS_KERNEL_NAME] == 2
+    for i in range(lanes):
+        if kind == "matern12":
+            ref, tol = tiled.kernel_mvm_plain(
+                u[i].double(), w[i].double(), v[i].double(), kind), 1e-4
+        else:
+            ref, tol = tiled.kernel_mvm_plain(u[i], w[i], v[i],
+                                              kind).double(), 1e-5
+        got = first[i].double()
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,s", [(600, 7, 33), (512, 9, 65), (130, 20, 130)])
+def test_cuda_presplit_matches_its_plain_form(m, d, s):
+    """On a card: the warp-specialised loop's pre-split pass writes the
+    workspace of ``presplit_plain`` (w's rows, V's TF32 halves in the
+    tensor cores' layout) bit for bit."""
+    _cuda_or_skip()
+    _, w, v = _fwd_inputs(1, m, d, s, seed=7)
+    got = tiled.presplit_cuda(w, v)
+    want = tiled.presplit_plain(w.cpu(), v.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _fwd_first_loop(u, w, v, kind):
+    """The forward kernel's first loop at any shape, as the wrapper launches
+    it where :func:`tiled.fwd_plan` declines the warp-specialised one."""
+    (n, d), (m, s) = u.shape, v.shape
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    splits = tiled.split_plan(n, m, s, sms)
+    out = torch.empty((n, s), device=u.device)
+    ws = torch.empty((splits, 1, n, s), device=u.device) if splits > 1 else None
+    tiled._launch(tiled.KERNEL_NAME, tiled._library().repro_kernel_mvm_fwd,
+                  u.device, u.data_ptr(), w.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), None if ws is None else ws.data_ptr(),
+                  n, m, d, s, tiled.KIND_CODES[kind], splits, 1)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", [(3, 33), (9, 65)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_fwd_ws_loop_keeps_non_finite_rows(kind, d, s):
+    """On a card: rows of u with an infinite or a NaN coordinate give the
+    same non-finite outputs in the warp-specialised loop as in the first
+    loop (a Matérn profile of an infinite r2 is NaN, and must not be
+    rounded to a finite TF32 value), and the other rows stay finite and
+    near."""
+    _cuda_or_skip()
+    n, m = 4096, 4096
+    u, w, v = _fwd_inputs(n, m, d, s, seed=8)
+    u[3, 0], u[700, d - 1] = float("inf"), float("-inf")
+    u[5, 1 % d] = float("nan")
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    assert tiled.fwd_plan(n, m, d, s, sms)[0]
+    got = tiled.kernel_mvm_cuda(u, w, v, kind)
+    want = _fwd_first_loop(u, w, v, kind)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    if kind != "rbf":  # there an infinite r2 gives 0, a finite value
+        assert not finite[3].any() and not finite[700].any()
+    rows = finite.all(dim=1)
+    assert rows.sum().item() >= n - 3
+    ref, tol = want[rows].double(), 2e-4 if kind == "matern12" else 2e-5
+    assert ((got[rows].double() - ref).abs().max().item()
+            <= tol * ref.abs().max().item())
+
+
 @pytest.mark.cuda
 def test_cuda_fwd_split_path_is_deterministic():
     """On a card: at the prediction shape the column range is split and the

@@ -299,9 +299,10 @@ def test_fit_batch_event_log_is_lane_tagged():
 # -- launch counters -----------------------------------------------------------
 def test_launch_counters_lose_nothing_across_threads():
     """More threads than cores, with a 1 us switch interval, counting 3000
-    launches each (every third with a second pass) through the kernels'
-    counter function: the counts are exact. (CPython with the GIL does not
-    switch threads inside the counter's dict ``+=``, so the same test passes
+    launches each (every third with a second pass, every other forward one
+    through the warp-specialised loop) through the kernels' counter
+    function: the counts are exact. (CPython with the GIL does not switch
+    threads inside the counter's dict ``+=``, so the same test passes
     without the lock there; the lock is what keeps the counts exact where
     the interpreter gives no such guarantee, e.g. free-threaded builds.)"""
     tiled.reset_launch_counts()
@@ -310,7 +311,8 @@ def test_launch_counters_lose_nothing_across_threads():
 
     def work():
         for i in range(per):
-            tiled.count_launch(tiled.KERNEL_NAME, second_pass=i % 3 == 0)
+            tiled.count_launch(tiled.KERNEL_NAME, second_pass=i % 3 == 0,
+                               path=tiled.WS_KERNEL_NAME if i % 2 else None)
             tiled.count_launch(tiled.BWD_KERNEL_NAME)
 
     pool = [threading.Thread(target=work) for _ in range(threads)]
@@ -324,10 +326,13 @@ def test_launch_counters_lose_nothing_across_threads():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in pool)
     try:
-        assert tiled.launch_counts() == {tiled.KERNEL_NAME: per * threads,
-                                         tiled.BWD_KERNEL_NAME: per * threads}
+        assert tiled.launch_counts() == {
+            tiled.KERNEL_NAME: per * threads,
+            tiled.WS_KERNEL_NAME: threads * len(range(1, per, 2)),
+            tiled.BWD_KERNEL_NAME: per * threads}
         assert tiled.second_pass_counts() == {
             tiled.KERNEL_NAME: threads * len(range(0, per, 3)),
+            tiled.WS_KERNEL_NAME: threads * len(range(3, per, 6)),
             tiled.BWD_KERNEL_NAME: 0}
     finally:
         tiled.reset_launch_counts()

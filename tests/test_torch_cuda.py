@@ -56,11 +56,12 @@ FWD_SHAPES = [
 ]
 
 
-def _fwd_inputs(n, m, d, s, seed=0):
-    """Scaled so that the kernel's values spread over (0, 1] at d = 26."""
+def _fwd_inputs(n, m, d, s, seed=0, scale=0.3):
+    """Scaled so that the kernel's values spread over (0, 1] at d = 26
+    (at another d, ``scale`` 0.3 sqrt(26 / d) keeps them so)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    u = 0.3 * torch.randn((n, d), generator=gen, device="cuda")
-    w = 0.3 * torch.randn((m, d), generator=gen, device="cuda")
+    u = scale * torch.randn((n, d), generator=gen, device="cuda")
+    w = scale * torch.randn((m, d), generator=gen, device="cuda")
     v = torch.randn((m, s), generator=gen, device="cuda")
     return u, w, v
 
@@ -187,6 +188,39 @@ def test_cuda_fwd_ws_loop_keeps_non_finite_rows(kind, d, s):
             <= tol * ref.abs().max().item())
 
 
+# song's (d, s) = (90, 33): AP's column slab (32 row tiles of u against
+# 1000 columns) and a square product (16 row tiles), as the song cell runs
+# them; the warp-specialised loop's rings do not fit at d = 90.
+SONG_SCALE = 0.3 * (26 / 90) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(4096, 1000), (2048, 2048)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_fwd_first_loop_at_song_matches_plain(kind, n, m):
+    """On a card, at song's (d, s) with the kernel's values spread as in
+    the cell: one call, counted under ``kernel_mvm_fwd`` and not under the
+    warp-specialised loop, vs the plain version at the tolerances of
+    :func:`test_cuda_fwd_kernel_matches_plain`."""
+    _cuda_or_skip()
+    d, s = 90, 33
+    u, w, v = _fwd_inputs(n, m, d, s, seed=9, scale=SONG_SCALE)
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    assert not tiled.fwd_plan(n, m, d, s, sms)[0] and not tiled.fwd_wide(d, s)
+    tiled.reset_launch_counts()
+    got = tiled.kernel_mvm_cuda(u, w, v, kind).double()
+    torch.cuda.synchronize()
+    assert tiled.LAUNCHES[tiled.KERNEL_NAME] == 1
+    assert tiled.LAUNCHES[tiled.WS_KERNEL_NAME] == 0
+    if kind == "matern12":
+        ref, tol = tiled.kernel_mvm_plain(u.double(), w.double(), v.double(),
+                                          kind), 1e-4
+    else:
+        ref, tol = tiled.kernel_mvm_plain(u, w, v, kind).double(), 1e-5
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
 @pytest.mark.cuda
 def test_cuda_fwd_split_path_is_deterministic():
     """On a card: at the prediction shape the column range is split and the
@@ -287,6 +321,26 @@ def test_cuda_bwd_fused_matches_plain(kind):
     got = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind).double()
     ref, tol = _bwd_ref(u, u, torch.cat([g, v], 1), torch.cat([v, g], 1),
                         kind)
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_bwd_fused_at_song_matches_plain(kind):
+    """On a card: the fused call at song's (d, s) = (90, 33) (s' = 72, one
+    launch) over 2048 rows, the kernel's values spread as in the cell, vs
+    the plain version on the unpadded operands."""
+    _cuda_or_skip()
+    assert tiled.bwd_s_chunks(90, 33, fused=True) == ((0, 33),)
+    u, _, g, v = _bwd_inputs(2048, 2048, 90, 33, seed=5)
+    u = u * (SONG_SCALE / 0.3)
+    tiled.reset_launch_counts()
+    got = tiled.kernel_mvm_bwd_fused_cuda(u, g, v, kind).double()
+    torch.cuda.synchronize()
+    assert tiled.LAUNCHES[tiled.BWD_KERNEL_NAME] == 1
+    ref, tol = _bwd_ref(u, u, torch.cat([g, v], 1), torch.cat([v, g], 1),
+                        kind)
+    assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
